@@ -1,10 +1,11 @@
-"""rustronomy_watershed_tpu — a TPU-native (JAX/XLA/Pallas) rebuild of the
-segmenting and merging watershed transforms of ``smups/rustronomy-watershed``.
+"""rustronomy_watershed_tpu — a JAX/XLA rebuild of the segmenting and merging
+watershed transforms of ``smups/rustronomy-watershed``.
 
 The reference's rayon-parallel window sweeps become fused whole-image stencil
 kernels under ``jit``; its serial union-find becomes scatter-min +
 pointer-jumping on device; large mosaics tile over a ``jax.sharding.Mesh``
-with halo exchange over ICI, and stacks of cutouts batch with ``vmap``.
+with halo exchange between devices, and stacks of cutouts are stacked into
+one device plane.
 
 Public surface mirrors the reference crate: ``TransformBuilder``,
 ``SegmentingWatershed`` / ``MergingWatershed`` (``transform``,

@@ -1,28 +1,16 @@
-"""Workarounds for upstream runtime bugs and platform drift.
+"""Workaround for an upstream runtime bug.
 
-1. jax 0.9.0 (XLA:CPU runtime): after certain sequences of compiles and
-   replays of one pjit-wrapped function under several static-argument
-   combinations, a cached executable can be re-invoked with a corrupted
-   argument table and fail with ``INVALID_ARGUMENT: Execution supplied N
-   buffers but compiled program expected M buffers``.  The trigger is
-   content-dependent (identical call structures pass or fail depending on
-   unrelated runtime values), pointing at memory corruption in the
-   executable cache rather than anything semantic; ``jax.clear_caches()``
-   followed by a recompile always recovers and the recomputed results are
-   bit-identical (verified against pre-corruption checksums).  Wrap public
-   jitted entry points so a corrupted cache costs one recompile instead of
-   a crash.
-
-2. Mosaic scoped-VMEM footprint drift (TPU): the footprint of an UNCHANGED
-   Pallas kernel can drift between sessions with the platform toolchain
-   (measured r7: +0.73 MiB on an identical config), turning VMEM-marginal
-   tile configurations into compile-time scoped-allocation OOMs.  Rather
-   than hard-failing, the wrapper consults recovery hooks registered by the
-   kernel modules (``register_vmem_recovery``): a hook derates its
-   tile-resolution VMEM budget one step and returns True, the caches are
-   cleared, and the retry re-traces with a smaller tile — stepping down the
-   auto_tile schedule until the program fits (bounded by the hook's derate
-   cap).  See ops/pallas_relax.py ``_vmem_drift_stepdown``.
+jax 0.9.0 (XLA:CPU runtime): after certain sequences of compiles and replays
+of one pjit-wrapped function under several static-argument combinations, a
+cached executable can be re-invoked with a corrupted argument table and fail
+with ``INVALID_ARGUMENT: Execution supplied N buffers but compiled program
+expected M buffers``.  The trigger is content-dependent (identical call
+structures pass or fail depending on unrelated runtime values), pointing at
+memory corruption in the executable cache rather than anything semantic;
+``jax.clear_caches()`` followed by a recompile always recovers and the
+recomputed results are bit-identical (verified against pre-corruption
+checksums).  Wrap public jitted entry points so a corrupted cache costs one
+recompile instead of a crash.
 """
 
 from __future__ import annotations
@@ -34,74 +22,26 @@ import jax
 
 _MARKER = "buffers but compiled program expected"
 
-# fn() -> bool: attempt one budget step-down; False when exhausted.
-_vmem_recovery_hooks: list = []
-
-
-def register_vmem_recovery(hook) -> None:
-    """Register a VMEM-OOM recovery hook (see module docstring, item 2).
-
-    Registration is idempotent: re-importing/reloading a kernel module must
-    not stack duplicate hooks (each duplicate would double the derate per
-    retry)."""
-    if hook not in _vmem_recovery_hooks:
-        _vmem_recovery_hooks.append(hook)
-
-
-def _is_vmem_oom(e: Exception) -> bool:
-    """Does this exception look like a Mosaic/XLA scoped-VMEM compile OOM?
-
-    Matched loosely on purpose: the exact text varies across toolchain
-    versions ("Scoped allocation ... exceeds ...", "RESOURCE_EXHAUSTED ...
-    vmem", "Ran out of memory in memory space vmem").  A false positive
-    costs one bounded retry with a slightly smaller tile; a false negative
-    re-raises — both safe."""
-    s = str(e).lower()
-    if "scoped allocation" in s:
-        return True
-    return "vmem" in s and (
-        "exceed" in s or "ran out" in s or "alloc" in s or "oom" in s
-        or "resource_exhausted" in s
-    )
-
 
 def cache_resilient(jitted):
-    """Retry ``jitted`` after clearing jax caches on (1) executable-cache
-    corruption — once — or (2) a scoped-VMEM compile OOM — stepping the
-    registered budget hooks down until one refuses (see module docstring).
-    Transparent otherwise."""
+    """Retry ``jitted`` once after clearing jax caches on executable-cache
+    corruption (see module docstring).  Transparent otherwise."""
 
     @functools.wraps(jitted)
     def call(*args, **kwargs):
-        retried_corruption = False
-        while True:
-            try:
-                return jitted(*args, **kwargs)
-            except ValueError as e:
-                # jaxlib surfaces XLA INVALID_ARGUMENT as ValueError
-                if _MARKER not in str(e) or retried_corruption:
-                    raise
-                retried_corruption = True
-                warnings.warn(
-                    "jax executable-cache corruption detected "
-                    f"({type(e).__name__}); clearing caches and retrying "
-                    "once",
-                    RuntimeWarning,
-                    stacklevel=2,
-                )
-                jax.clear_caches()
-            except Exception as e:  # noqa: BLE001 — filtered just below
-                if not _is_vmem_oom(e):
-                    raise
-                # The OOM does not identify which module's kernel overflowed,
-                # so step EVERY registered hook down one notch (no
-                # short-circuit: `any` would starve later hooks while
-                # draining the first one's budget).  Over-derating the
-                # innocent module costs one tile step; under-derating the
-                # guilty one loops here again — both bounded.
-                stepped = [hook() for hook in _vmem_recovery_hooks]
-                if not any(stepped):
-                    raise  # no hook could step down further
-                jax.clear_caches()
+        try:
+            return jitted(*args, **kwargs)
+        except ValueError as e:
+            # jaxlib surfaces XLA INVALID_ARGUMENT as ValueError
+            if _MARKER not in str(e):
+                raise
+            warnings.warn(
+                "jax executable-cache corruption detected "
+                f"({type(e).__name__}); clearing caches and retrying once",
+                RuntimeWarning,
+                stacklevel=2,
+            )
+            jax.clear_caches()
+            return jitted(*args, **kwargs)
 
     return call

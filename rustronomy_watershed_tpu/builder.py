@@ -19,25 +19,37 @@ from .models.merging import MergingWatershed
 from .models.segmenting import SegmentingWatershed
 
 
+BACKENDS = ("auto", "relax", "jnp", "native")
+
+
 class BuildErr(Exception):
-    """Configuration error raised by build_* (src/lib.rs:1049-1065)."""
+    """Configuration error raised by build_* (src/lib.rs:1049-1065) and by
+    ``set_backend`` for an engine this package does not have."""
 
     MAX_TOO_HIGH = "MaxToHigh"
     MAX_TOO_LOW = "MaxToLow"
+    UNKNOWN_BACKEND = "UnknownBackend"
 
-    def __init__(self, kind: str, max_water_level: int):
+    def __init__(self, kind: str, value):
         self.kind = kind
-        self.max_water_level = max_water_level
-        if kind == self.MAX_TOO_HIGH:
+        if kind == self.UNKNOWN_BACKEND:
+            self.backend = value
             msg = (
-                f"Maximum water level set to {max_water_level}, which is higher "
-                f"than the maximum allowed value {NORMAL_MAX}"
+                f"unknown backend {value!r}; accepted values are "
+                + ", ".join(repr(b) for b in BACKENDS)
             )
         else:
-            msg = (
-                f"Maximum water level set to {max_water_level}, which is lower "
-                f"than the minimum allowed value {ALWAYS_FILL + 1}"
-            )
+            self.max_water_level = value
+            if kind == self.MAX_TOO_HIGH:
+                msg = (
+                    f"Maximum water level set to {value}, which is higher "
+                    f"than the maximum allowed value {NORMAL_MAX}"
+                )
+            else:
+                msg = (
+                    f"Maximum water level set to {value}, which is lower "
+                    f"than the minimum allowed value {ALWAYS_FILL + 1}"
+                )
         super().__init__(msg)
 
 
@@ -101,17 +113,19 @@ class TransformBuilder:
         return self
 
     def set_sweep_impl(self, sweep_fn) -> "TransformBuilder":
-        """Advanced: override the flood-sweep kernel (e.g. the Pallas
-        multi-step kernel); must be semantically >= 1 Jacobi sweeps."""
+        """Advanced: override the flood sweep of the level-sweep engine;
+        must be semantically >= 1 Jacobi sweeps."""
         self.sweep_fn = sweep_fn
         return self
 
     def set_backend(self, backend: str) -> "TransformBuilder":
-        """'auto' (default: priority relaxation for segmenting; Pallas
-        level-sweep kernel for merging on accelerators, jnp on CPU),
-        'relax' (segmenting-only), 'pallas', or 'jnp' — all bit-identical."""
-        if backend not in ("auto", "relax", "relax_pallas", "pallas", "jnp", "native"):
-            raise ValueError(f"unknown backend {backend!r}")
+        """'auto' (default: the priority-relaxation engine wherever it
+        applies, the jnp level sweep otherwise — the same choice on every
+        platform), 'relax', 'jnp' (the level sweep), or 'native' (the C++
+        engine on the host) — all bit-identical.  Anything else raises
+        ``BuildErr``."""
+        if backend not in BACKENDS:
+            raise BuildErr(BuildErr.UNKNOWN_BACKEND, backend)
         self.backend = backend
         return self
 
@@ -148,7 +162,7 @@ class TransformBuilder:
 
     def set_mesh(self, mesh) -> "TransformBuilder":
         """Tile the transform over a 2-D ('y','x') jax.sharding.Mesh with
-        halo exchange over ICI (parallel.tiled_transform).  Applies to the
+        halo exchange between devices (parallel.tiled_transform).  Applies to the
         fast paths (transform / transform_to_list); hook-observed runs stay
         single-device."""
         self.mesh = mesh

@@ -1,6 +1,6 @@
 """Flood (colouring) kernels: one Jacobi sweep and the per-level fixed point.
 
-TPU-native reformulation of the reference's ``find_flooded_px`` + serial paint
+Device reformulation of the reference's ``find_flooded_px`` + serial paint
 (/root/reference/src/lib.rs:196-257, :1394-1438): instead of collecting a
 dynamic list of pixels and painting them serially, one sweep is a pure
 whole-image 5-point stencil.  A pixel is painted when it is
@@ -56,7 +56,7 @@ def flood_fixed_point(img: jnp.ndarray, labels: jnp.ndarray, lvl, sweep_fn=None)
     /root/reference/src/lib.rs:1394-1438).
 
     ``sweep_fn(img, labels, lvl) -> labels`` may be supplied to swap in an
-    accelerated (Pallas / multi-step) sweep; it must be semantically equal to
+    accelerated (e.g. multi-step) sweep; it must be semantically equal to
     ``flood_sweep`` iterated >= 1 times (information moves <=1 px per sweep,
     so any k-step fusion reaches the same fixed point).
 

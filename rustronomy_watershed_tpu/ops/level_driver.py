@@ -1,10 +1,11 @@
 """The water-level sweep driver: the whole transform as one jitted program.
 
-TPU-native restructuring of the reference's per-level loop
-(/root/reference/src/lib.rs:1379-1521 merging, :1689-1807 segmenting):
+Restructures the reference's per-level loop
+(/root/reference/src/lib.rs:1379-1521 merging, :1689-1807 segmenting) for a
+device:
 
 * ``lax.fori_loop`` over water levels 0..=max_water_level,
-* nested ``lax.while_loop`` flood fixed point (ops.flood / ops.pallas_flood),
+* nested ``lax.while_loop`` flood fixed point (ops.flood),
 * merge phase on-device (ops.merge) for the merging variant,
 * per-level statistics accumulated into pre-allocated stacked arrays instead
   of host-side hook callbacks (``transform_to_list`` -> (levels, K+1) lake
@@ -13,10 +14,10 @@ TPU-native restructuring of the reference's per-level loop
 
 Two compute backends with bit-identical results:
 
-* ``backend='jnp'`` — whole-image fused stencil sweeps (XLA fusion), one HBM
-  round-trip per Jacobi sweep.  Works on any platform.
-* ``backend='pallas'`` — the time-tiled Pallas kernel (ops.pallas_flood):
-  ``steps`` sweeps per HBM round-trip on a padded tile-aligned domain.
+* ``backend='jnp'`` — whole-image fused stencil sweeps per level (XLA
+  fusion), one HBM round-trip per Jacobi sweep.
+* ``backend='relax'`` — the priority-relaxation fixed point (ops.priority):
+  the whole transform in O(longest claim chain) sweeps.
 
 Per-level early exit: a level L > 0 at which no pixel has value exactly L is
 skipped via ``lax.cond`` (see ops.histogram.value_histogram) — its flood fixed
@@ -77,12 +78,8 @@ def level_step_counted(img, labels, lvl, *, merging: bool, n_labels: int, sweep_
     return labels, loops
 
 
-def _collect_loop(step, labels0, *, levels, vhist, collect, n_labels, real_of):
-    """Shared level loop: run `step` per level, accumulate statistics.
-
-    ``real_of(labels)`` extracts the user-visible label plane (identity for
-    the jnp backend; centre slice for the padded pallas domain).
-    """
+def _collect_loop(step, labels0, *, levels, vhist, collect, n_labels):
+    """Shared level loop: run `step` per level, accumulate statistics."""
 
     def run_lvl(lvl, lab):
         return jax.lax.cond(
@@ -90,8 +87,7 @@ def _collect_loop(step, labels0, *, levels, vhist, collect, n_labels, real_of):
         )
 
     if collect == "none":
-        labels = jax.lax.fori_loop(0, levels, run_lvl, labels0)
-        return real_of(labels)
+        return jax.lax.fori_loop(0, levels, run_lvl, labels0)
 
     if collect == "sizes":
         out0 = jnp.zeros((levels, n_labels + 1), dtype=jnp.int32)
@@ -99,24 +95,21 @@ def _collect_loop(step, labels0, *, levels, vhist, collect, n_labels, real_of):
         def body(lvl, carry):
             lab, out = carry
             lab = run_lvl(lvl, lab)
-            out = out.at[lvl].set(lake_sizes(real_of(lab), n_labels))
+            out = out.at[lvl].set(lake_sizes(lab, n_labels))
             return lab, out
 
-        labels, out = jax.lax.fori_loop(0, levels, body, (labels0, out0))
-        return real_of(labels), out
+        return jax.lax.fori_loop(0, levels, body, (labels0, out0))
 
     if collect == "history":
-        real_shape = real_of(labels0).shape
-        out0 = jnp.zeros((levels,) + real_shape, dtype=jnp.int32)
+        out0 = jnp.zeros((levels,) + labels0.shape, dtype=jnp.int32)
 
         def body(lvl, carry):
             lab, out = carry
             lab = run_lvl(lvl, lab)
-            out = out.at[lvl].set(real_of(lab))
+            out = out.at[lvl].set(lab)
             return lab, out
 
-        labels, out = jax.lax.fori_loop(0, levels, body, (labels0, out0))
-        return real_of(labels), out
+        return jax.lax.fori_loop(0, levels, body, (labels0, out0))
 
     raise ValueError(f"unknown collect mode {collect!r}")
 
@@ -131,12 +124,6 @@ def run_levels_impl(
     collect: str = "none",
     sweep_fn=None,
     backend: str = "jnp",
-    tile: int | None = None,
-    steps: int | None = None,
-    interpret: bool = False,
-    with_flags: bool = False,
-    batch: tuple | None = None,
-    batch_mins=None,
 ):
     """Run the full transform.
 
@@ -147,350 +134,75 @@ def run_levels_impl(
       max_water_level: inclusive final level (1..=254).
       merging: merging (void-filling) variant if True, else segmenting.
       collect: 'none' | 'sizes' | 'history'.
-      backend: 'jnp' | 'pallas' | 'relax' | 'relax_pallas' (bit-identical
-        results).
-      tile/steps/interpret: pallas kernel tuning (steps = sweeps fused per
-        HBM round-trip; interpret=True runs the kernel on CPU for testing).
-        None picks the backend's tuned default (flood 64/8, relax 256/16).
-      batch: static ``(b, hs, h_img)`` when ``img`` is a VERTICALLY STACKED
-        batch of ``b`` images of ``h_img`` rows at stride ``hs`` rows each
-        (models/base.transform_batch's merging layout: per-image NEVER_FILL
-        borders + one separator row).  Enables the per-image broadcast
-        shortcut: when the unclaimed-interior COUNT equals exactly the
-        stacking structure's NEVER_FILL cell count ``(3b-2)*(w-2)``, every
-        image's claimed set is its full interior rectangle (one 4-connected
-        component each), so the merged labels are per-image seed-min
-        broadcasts.  The caller must guarantee NO seed sits on any
-        per-image border (a border seed on a structural cell is claimed and
-        shifts the count both ways — transform_batch checks the coordinate
-        lists on the host and omits ``batch`` otherwise).
-      batch_mins: (b,) int32 — per-image minimum surviving seed label
-        (keep-last dedup), the broadcast values.  Required with ``batch``.
-      with_flags: additionally return a scalar divergence flag as the LAST
-        element — True iff the relax_pallas engine detected d-field
-        saturation (a >= 2^23-px plateau starving label donation;
-        ops.pallas_relax module docstring).  The caller should then re-run
-        on an exact engine.  Constant False for every other backend (their
-        32-bit d cannot saturate on any addressable image).
+      backend: 'jnp' (the level sweep) | 'relax' (the priority-relaxation
+        fixed point) — bit-identical results.
 
     Returns final labels, or (final labels, collected stack).
-
-    ``labels0=None`` (relax_pallas only) means "seeds from the image": the
-    fused pack kernel derives the seed mask + numbering in-kernel.
     """
     img = jnp.asarray(img).astype(jnp.int32)
-
-    def _flagged(res, flag=None):
-        # Append the divergence flag when requested (see the docstring).
-        if not with_flags:
-            return res
-        flag = jnp.bool_(False) if flag is None else flag
-        return res + (flag,) if isinstance(res, tuple) else (res, flag)
-
-    if labels0 is None:
-        if backend != "relax_pallas":
-            raise ValueError("labels0=None requires backend='relax_pallas'")
-    else:
-        labels0 = jnp.asarray(labels0, dtype=jnp.int32)
+    labels0 = jnp.asarray(labels0, dtype=jnp.int32)
     levels = max_water_level + 1
 
-    if backend in ("relax", "relax_pallas") and merging and collect != "none":
+    if backend == "relax" and merging and collect != "none":
         # Per-level MERGED statistics need the incremental per-level unions,
         # which the one-shot relaxation cannot produce — fall back to the
-        # level-sweep engine of the matching platform tier instead of raising
-        # (same steering as the public API's _resolved_backend).  NB the
-        # public ``transform_to_list`` uses the much faster merge_curve path
-        # (one relax pass + host Kruskal) — this on-device fallback exists
-        # for direct run_levels callers, who may not pass host-side work.
-        if labels0 is None:
-            # "seeds from the image" is a relax_pallas-only input form;
-            # derive the same labels the fused pack kernel would (row-major
-            # numbering of the extrema mask) so the fallback stays seamless.
-            from .seeds import local_extrema_mask, seed_labels_from_mask
+        # level sweep instead of raising (same steering as the public API's
+        # _resolved_backend).  NB the public ``transform_to_list`` uses the
+        # much faster merge_curve path (one relax pass + host Kruskal) —
+        # this on-device fallback exists for direct run_levels callers.
+        backend = "jnp"
 
-            labels0 = seed_labels_from_mask(local_extrema_mask(img))
-        backend = "pallas" if backend == "relax_pallas" else "jnp"
-        tile = steps = None  # relax tuning does not apply to the flood kernel
-
-    if backend in ("relax", "relax_pallas"):
+    if backend == "relax":
         # The whole transform as ONE priority-relaxation fixed point
-        # (ops.priority / ops.pallas_relax) — bit-identical to the level
-        # sweep, in O(longest claim chain) whole-image passes instead of the
-        # per-level ring sums (measured: 29 vs ~3100 sweeps at 4096^2).
+        # (ops.priority) — bit-identical to the level sweep, in O(longest
+        # claim chain) whole-image passes instead of the per-level ring sums.
         #
         # Merging variant: which pixels are claimed (and when) is
         # label-independent, and the merging output at the final level is
         # "each 4-connected component of the claimed set takes its minimum
         # seed label" — i.e. one transitive merge_touching over the
-        # segmenting labels.  Per-level curves/history still need the
-        # incremental per-level unions (handled by the fallback above).
+        # segmenting labels (ops.scan_merge).
         from .priority import relax_transform, sizes_from_levels
 
-        if (
-            merging
-            and backend == "relax_pallas"
-            and max_water_level >= 254  # full depth: no claim needs masking
-        ):
-            # Fastest merging path: relax to the fixed point, then run the
-            # component-min scans DIRECTLY on the padded label plane (the
-            # claimed-ness gate pins out-of-domain cells at 0 = barriers) —
-            # no extraction or slice pass ever materialises.  The relax
-            # call's fused epilogue emits ONLY the single-component
-            # statistics (fwd_scan='stats'): the common dense case takes
-            # the broadcast shortcut below and never needs the fwd-scan y0
-            # plane, so the converging call skips that scan's compute, its
-            # HBM write, AND its VMEM staging block (returning the
-            # segmenting tile table to the merging path — 8192²: 152 vs
-            # the fused 144).  The general (NaN / border-seed) tail pays
-            # one extra plane pass instead: component_min_from_padded
-            # recomputes pass 1 itself (y0=None).  VERDICT r3 #1.
-            from .pallas_relax import relax_packed_planes
-            from .scan_merge import component_min_from_padded
-
-            from .scan_merge import _INF as _SCAN_INF
-
-            h, w = img.shape
-            (
-                _, lab_pad, p, col_off, tile_r, y0, y0_valid, mstats, starved,
-            ) = relax_packed_planes(
-                img, labels0, tile=tile, steps=steps, interpret=interpret,
-                fwd_scan="stats",
-            )
-            # Single-component shortcut: when the certified fixed point has
-            # NO unclaimed interior pixel and NO claimed border pixel, the
-            # claimed set is the full interior rectangle — one 4-connected
-            # component — so component-min is a broadcast of the global
-            # minimum label (gmin < INF guards the degenerate empty
-            # interior).  This is the common case for full-range u8 fields
-            # without NaN masking; NaN-laced images (interior NEVER_FILL
-            # barriers) and border seeds take the general scan tail.  The
-            # statistics ride the relax kernel's fused epilogue for free
-            # (ops.pallas_relax), so the shortcut costs one write-only
-            # broadcast pass instead of ~3 read+write scan rounds.
-            n_uncl, any_cl_border, gmin = mstats
-            if batch is not None:
-                # Batched stacked plane: the per-image border/separator rows
-                # are structural NEVER_FILL cells — always unclaimed (the
-                # caller guarantees no border seeds, so none is claimed, and
-                # every one of them lies inside the stacked plane's global
-                # interior except the global border itself).  The fixed
-                # point has every per-image interior cell claimed iff the
-                # unclaimed count equals EXACTLY that structural count:
-                # rows {h_img-1, h_img} of image 0, {0, h_img-1, h_img} of
-                # middle images, {0, h_img-1} of the last (its separator IS
-                # the global border row) = 3b-2 rows of w-2 interior cells.
-                # Then each image's claimed set is its full (h_img-2)x(w-2)
-                # rectangle — one component — and component-min is the
-                # per-image minimum surviving seed label (batch_mins).
-                bsz, hs_b, h_img = batch
-                if batch_mins is None:
-                    raise ValueError("batch requires batch_mins")
-                mins = jnp.asarray(batch_mins, jnp.int32)
-                if mins.shape != (bsz,):
-                    raise ValueError("batch_mins must be shape (b,)")
-                structural = jnp.int32((3 * bsz - 2) * (w - 2))
-                fast = (
-                    y0_valid
-                    & (n_uncl == structural)
-                    & jnp.logical_not(any_cl_border)
-                    & jnp.all(mins > 0)
-                )
-
-                def _broadcast(_):
-                    rr = jax.lax.broadcasted_iota(jnp.int32, (h, w), 0)
-                    cc = jax.lax.broadcasted_iota(jnp.int32, (h, w), 1)
-                    wi = rr % hs_b  # row within the image's hs-row slot
-                    interior = (
-                        (wi >= 1)
-                        & (wi <= h_img - 2)
-                        & (cc >= 1)
-                        & (cc <= w - 2)
-                    )
-                    return jnp.where(interior, mins[rr // hs_b], jnp.int32(0))
-
-            else:
-                fast = (
-                    y0_valid
-                    & (n_uncl == 0)
-                    & jnp.logical_not(any_cl_border)
-                    & (gmin < jnp.int32(_SCAN_INF))
-                )
-
-                def _broadcast(_):
-                    rr = jax.lax.broadcasted_iota(jnp.int32, (h, w), 0)
-                    cc = jax.lax.broadcasted_iota(jnp.int32, (h, w), 1)
-                    interior = (
-                        (rr >= 1) & (rr <= h - 2) & (cc >= 1) & (cc <= w - 2)
-                    )
-                    return jnp.where(interior, gmin, jnp.int32(0))
-
-            # General-tail engine: the 2x-row-coarsened scan system (exact —
-            # ops/scan_merge.py coarse-engine block comment) halves the
-            # per-round cost and shortens rounds on hole-laced (NaN-masked)
-            # fields, which run ~50+ rounds at 4096².  Static gates: the
-            # packed coarse plane carries values in 24 bits, and the
-            # coarsen grid needs an even band split of the padded height.
-            h2_pad = lab_pad.shape[0] - 2 * p
-            # w >= 3: at w == 2 both columns are border columns, so the
-            # coarse system is empty and the border-fold targets coincide
-            # with the (zeroed) border columns — fine tail handles it.
-            use_coarse = h2_pad % 16 == 0 and n_labels < (1 << 24) and w >= 3
-
-            def _scan_tail(lab_pad):
-                # y0=None: pass 1 runs in-tail (the stats-only epilogue
-                # never produced it) — bit-identical to the fused plane.
-                if use_coarse:
-                    from .scan_merge import component_min_coarse_from_padded
-
-                    return component_min_coarse_from_padded(
-                        lab_pad, p=p, h=h, w=w, interpret=interpret,
-                        col_off=col_off,
-                    )
-                return component_min_from_padded(
-                    lab_pad, p=p, h=h, w=w, tile=tile_r, interpret=interpret,
-                    col_off=col_off,
-                )
-
-            return _flagged(
-                jax.lax.cond(fast, _broadcast, _scan_tail, lab_pad),
-                starved,
-            )
-
-        if backend == "relax_pallas":
-            from .pallas_relax import relax_transform_pallas
-
-            labels, claim_levels, starved = relax_transform_pallas(
-                img, labels0, max_water_level=max_water_level,
-                tile=tile,
-                steps=steps,  # None -> measured schedule (ops.tune)
-                interpret=interpret,
-            )
-        else:
-            labels, claim_levels = relax_transform(
-                img, labels0, max_water_level=max_water_level
-            )
-            starved = None  # 32-bit d: cannot saturate on addressable images
+        labels, claim_levels = relax_transform(
+            img, labels0, max_water_level=max_water_level
+        )
         if merging:
-            # Final merged labels = component-min of the claimed set
-            # (ops.scan_merge) — segmented min-scans instead of per-label
-            # union tables, whose 4M-entry scatter/gathers dominated r1's
-            # merging time (8 Mpix/s at 4096²).
             from .scan_merge import component_min_labels
 
-            return _flagged(
-                component_min_labels(
-                    labels,
-                    use_pallas=(backend == "relax_pallas"),
-                    interpret=interpret,
-                    # Static label bound: routes the Pallas path onto the
-                    # coarse engine (the r11 general-tail accelerator).
-                    max_label=n_labels,
-                ),
-                starved,
-            )
+            return component_min_labels(labels)
         if collect == "none":
-            return _flagged(labels, starved)
+            return labels
         if collect == "sizes":
-            return _flagged(
-                (
-                    labels,
-                    sizes_from_levels(
-                        labels, claim_levels, n_labels, max_water_level
-                    ),
-                ),
-                starved,
+            return labels, sizes_from_levels(
+                labels, claim_levels, n_labels, max_water_level
             )
         if collect == "history":
             lvls = jnp.arange(levels, dtype=jnp.int32)[:, None, None]
-            hist = jnp.where(claim_levels[None] <= lvls, labels[None], 0)
-            return _flagged((labels, hist), starved)
+            return labels, jnp.where(claim_levels[None] <= lvls, labels[None], 0)
         raise ValueError(f"unknown collect mode {collect!r}")
+
+    if backend != "jnp":
+        raise ValueError(f"unknown backend {backend!r}")
 
     vhist = value_histogram(img)
 
-    if backend == "jnp":
-
-        def step(labels, lvl):
-            return level_step(
-                img, labels, lvl, merging=merging, n_labels=n_labels, sweep_fn=sweep_fn
-            )
-
-        return _flagged(_collect_loop(
-            step,
-            labels0,
-            levels=levels,
-            vhist=vhist,
-            collect=collect,
-            n_labels=n_labels,
-            real_of=lambda lab: lab,
-        ))
-
-    if backend == "pallas":
-        from .pallas_flood import (
-            band_histogram,
-            flood_fixed_point_padded,
-            gather_current,
-            pad_domain,
+    def step(labels, lvl):
+        return level_step(
+            img, labels, lvl, merging=merging, n_labels=n_labels, sweep_fn=sweep_fn
         )
 
-        tile = tile or 64
-        steps = steps or 8
-        h, w = img.shape
-        img_pad, lab_pad = pad_domain(img, labels0, tile, steps)
-        bhist = band_histogram(img, tile)
-        gy = bhist.shape[0]
-        # Distinct ping-pong allocations (both aliased in-place by the
-        # kernel, so they must not share a buffer); aprons stay zero forever.
-        state0 = (lab_pad, lab_pad * 1, jnp.zeros((gy,), jnp.int32))
-
-        def real_of(state):
-            a, b, cur = state
-            lab = gather_current(a, b, cur, tile=tile, steps=steps)
-            return jax.lax.dynamic_slice(lab, (steps, steps), (h, w))
-
-        def step(state, lvl):
-            a, b, cur = state
-            first_active = (bhist[:, lvl] > 0).astype(jnp.int32)
-            a, b, cur, painted = flood_fixed_point_padded(
-                img_pad, a, b, cur, lvl, first_active,
-                tile=tile, steps=steps, interpret=interpret,
-            )
-            if merging:
-
-                def do_merge(state):
-                    a, b, cur = state
-                    merged = merge_touching(real_of(state), n_labels)
-                    plane = jax.lax.dynamic_update_slice(
-                        gather_current(a, b, cur, tile=tile, steps=steps),
-                        merged,
-                        (steps, steps),
-                    )
-                    return plane, plane * 1, jnp.zeros((gy,), jnp.int32)
-
-                return jax.lax.cond(
-                    painted | (lvl == 0), do_merge, lambda s: s, (a, b, cur)
-                )
-            return a, b, cur
-
-        return _flagged(_collect_loop(
-            step,
-            state0,
-            levels=levels,
-            vhist=vhist,
-            collect=collect,
-            n_labels=n_labels,
-            real_of=real_of,
-        ))
-
-    raise ValueError(f"unknown backend {backend!r}")
+    return _collect_loop(
+        step,
+        labels0,
+        levels=levels,
+        vhist=vhist,
+        collect=collect,
+        n_labels=n_labels,
+    )
 
 
-# Public jitted entry.  NOTE: nothing inside this package jits an
-# already-jitted function — jit-of-jit replay on jax 0.9.0 CPU can poison
-# the executable cache ("Execution supplied N buffers but compiled program
-# expected M").  Jitted callers (e.g. ops.pipeline.watershed_e2e) call
-# run_levels_impl directly.
-run_levels = cache_resilient(
+_run_levels_jit = cache_resilient(
     partial(
         jax.jit,
         static_argnames=(
@@ -500,11 +212,40 @@ run_levels = cache_resilient(
             "collect",
             "sweep_fn",
             "backend",
-            "tile",
-            "steps",
-            "interpret",
-            "with_flags",
-            "batch",
         ),
     )(run_levels_impl)
 )
+
+
+def run_levels(
+    img,
+    labels0,
+    *,
+    n_labels: int,
+    max_water_level: int,
+    merging: bool,
+    collect: str = "none",
+    sweep_fn=None,
+    backend: str = "jnp",
+):
+    """Public jitted entry (arguments as run_levels_impl).
+
+    Every call reaches the jitted function with the SAME keyword set: on jax
+    0.9.0 CPU, calling one jitted function with different subsets of its
+    static keywords can corrupt its executable cache ("Execution supplied N
+    buffers but compiled program expected M"), and every later call then
+    pays a cache clear and a recompile (_compat.cache_resilient).  Nothing
+    inside this package jits an already-jitted function for the same
+    reason; jitted callers (e.g. ops.pipeline.watershed_e2e) call
+    run_levels_impl directly.
+    """
+    return _run_levels_jit(
+        img,
+        labels0,
+        n_labels=n_labels,
+        max_water_level=max_water_level,
+        merging=merging,
+        collect=collect,
+        sweep_fn=sweep_fn,
+        backend=backend,
+    )

@@ -3,7 +3,7 @@
 Replaces the reference's ``find_merge`` (pair detection via 3x3 windows,
 /root/reference/src/lib.rs:393-445), the serial quadratic connected-component
 union ``make_colour_map`` (src/lib.rs:467-542) and the LUT ``recolour``
-(src/lib.rs:589-592) with a TPU-native pipeline:
+(src/lib.rs:589-592) with a device pipeline:
 
 1. **Adjacency scatter-min** — for every interior coloured pixel, the minimum
    differently-coloured 4-neighbour label is scatter-min'ed into a per-label
@@ -29,11 +29,12 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 from ..constants import INT32_MAX, UNCOLOURED
 from .stencil import interior_mask, roll4
 
-_BIG = jnp.int32(INT32_MAX)
+_BIG = np.int32(INT32_MAX)
 
 
 def _pointer_jump(parent: jnp.ndarray) -> jnp.ndarray:

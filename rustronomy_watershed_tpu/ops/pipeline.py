@@ -36,21 +36,11 @@ def watershed_e2e_impl(
     n_labels: int | None = None,
     sweep_fn=None,
     backend: str = "jnp",
-    tile: int | None = None,
-    steps: int | None = None,
-    interpret: bool = False,
 ):
     """Seeds from the image itself (reference find_local_minima semantics),
-    then the full level sweep.  Returns what run_levels returns."""
+    then the full transform.  Returns what run_levels returns."""
     img = jnp.asarray(img)
-    if backend == "relax_pallas":
-        # Fused path: the pack kernel (ops.pallas_pack) computes the seed
-        # mask, row-major numbering, and the packed relax planes in one
-        # banded HBM pass — bit-identical to the jnp pipeline below.
-        labels0 = None
-    else:
-        mask = local_extrema_mask(img)
-        labels0 = seed_labels_from_mask(mask)
+    labels0 = seed_labels_from_mask(local_extrema_mask(img))
     if n_labels is None:
         n_labels = max_seed_count(img.shape[-2:])
     return run_levels_impl(
@@ -62,9 +52,6 @@ def watershed_e2e_impl(
         collect=collect,
         sweep_fn=sweep_fn,
         backend=backend,
-        tile=tile,
-        steps=steps,
-        interpret=interpret,
     )
 
 
@@ -79,9 +66,6 @@ watershed_e2e = cache_resilient(
             "n_labels",
             "sweep_fn",
             "backend",
-            "tile",
-            "steps",
-            "interpret",
         ),
     )(watershed_e2e_impl)
 )

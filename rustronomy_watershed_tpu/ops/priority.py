@@ -38,13 +38,14 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 from ..constants import NEVER_FILL, UNCOLOURED
 from .stencil import roll4
 
-_BIG_L = jnp.int32(NEVER_FILL + 1)  # > any claimable level
-_BIG_D = jnp.int32(2**30)
-_BIG_LAB = jnp.int32(2**30)
+_BIG_L = np.int32(NEVER_FILL + 1)  # > any claimable level
+_BIG_D = np.int32(2**30)
+_BIG_LAB = np.int32(2**30)
 
 
 def _lex_lt(l1, d1, l2, d2):

@@ -7,551 +7,36 @@ label" (reference merge semantics under the pinned min-label tie-break,
 level L makes the claimant adjacent to all its earlier-claimed neighbours,
 so by the last level every within-component label pair has merged
 transitively.  Component-min is therefore equivalent to iterating the
-reference's find_merge/make_colour_map/recolour to exhaustion — but can be
-computed with **segmented min-scans** instead of per-label union tables
-(whose multi-million-entry scatter/gathers cost 170-400 ms at 4096² on TPU):
+reference's find_merge/make_colour_map/recolour to exhaustion — but is
+computed with **segmented min-scans** instead of per-label union tables:
 
 * a vertical pass replaces every maximal claimed run of each column by the
-  run's min, via inclusive segmented min scans by operator DOUBLING
-  (log2(H) sublane roll+select steps — cheap vector ops);
-* a horizontal pass does the same along rows with LANE doubling — no
-  transposes anywhere;
+  run's min (forward then backward inclusive segmented min scans,
+  ``lax.associative_scan``);
+* a horizontal pass does the same along rows;
 * alternate until a fixed point.  Each pass moves label information across
-  an entire run — convergence takes O(staircase complexity of the
-  components) passes (measured: 2-3 on dense random fields), not
-  O(component diameter) stencil sweeps.
-
-One round = TWO banded kernel passes (fwd-vertical; then, in reversed band
-order, bwd-vertical + both horizontal scans + border restores + an exact
-in-kernel convergence flag), each moving every plane byte through VMEM once.
+  an entire run, so convergence takes O(staircase complexity of the
+  components) rounds, not O(component diameter) stencil sweeps.
 
 Edge rule: the reference only detects merge pairs through 3x3 windows
 centred on interior pixels, so an adjacent pair of two *border* pixels never
 merges (ops/merge.py, SURVEY.md §2 #5).  Exactly the vertical edges inside
 columns {0, W-1} and the horizontal edges inside rows {0, H-1} connect two
-border pixels; the driver restores those lines after each directional pass
-(a directional scan never leaks values across columns/rows, so restoring
-the line undoes every blocked-edge propagation).
+border pixels; each directional pass restores those lines afterwards (a
+directional scan never leaks values across columns/rows, so restoring the
+line undoes every blocked-edge propagation).
 
 UNCOLOURED (= 0) pixels are the segment barriers; labels are positive.
 """
 
 from __future__ import annotations
 
-import os as _os
-from functools import partial
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-_INF = 2**29  # > any label (buckets cap at 2^23); < the packed flag bit
-_FLAG = 1 << 30
 
 
-def _parse_coarse_hwin() -> int | None:
-    """Parse RWT_COARSE_HWIN ONCE at import.
-
-    The value is baked into traced programs (component_min_coarse_from_padded
-    reads it under jit), so a mid-session env change would silently do
-    nothing until every cache is cleared — capturing at import makes that
-    contract explicit.  Values < 2 are rejected: a 1-lane window runs zero
-    doubling steps, leaving convergence to the every-4th full-width rounds —
-    still correct but a silent ~4x round-count regression."""
-    raw = _os.environ.get("RWT_COARSE_HWIN", "256")
-    if raw in ("", "0", "off"):
-        return None
-    v = int(raw)
-    if v < 2:
-        raise ValueError(
-            f"RWT_COARSE_HWIN={raw!r}: need >= 2 lanes, or 0/off to disable"
-        )
-    return v
-
-
-_COARSE_HWIN = _parse_coarse_hwin()
-
-# Multi-iteration fused coarse rounds (r12): RWT_COARSE_MULTI=0 restores the
-# legacy two-pass rounds; RWT_COARSE_K = in-band sub-iterations per band
-# visit (>= 1; k=2 measured best — k=3 over-paid VPU on blob fields).
-# Parsed once at import (same trace-time-capture contract as
-# RWT_COARSE_HWIN above).
-_COARSE_MULTI = _os.environ.get("RWT_COARSE_MULTI", "1") not in ("0", "off")
-_COARSE_K = max(1, int(_os.environ.get("RWT_COARSE_K", "2")))
-
-
-def _seg_min_scan(v, b, axis, size, reverse, idx, limit=None):
-    """Inclusive segmented min scan by operator doubling.
-
-    ``v``: value plane (< 2^29 — labels or _INF); ``b``: reset-flag plane as
-    int32 {0,1} (Mosaic can only rotate 32-bit vectors); ``idx``: iota along
-    ``axis``.  combine(cur, prev) = (cur.b ? cur.v : min(cur.v, prev.v),
-    cur.b | prev.b) applied with strides 1, 2, 4, ...
-
-    The (v, b) pair rides ONE int32 with the flag at bit 30
-    (``t = v + b * FLAG``), so every doubling step needs a single roll
-    instead of two — the rolls (lane-dim rolls especially, for the
-    horizontal scans) dominate the pass compute.  The packed combine
-    ``cur.b ? cur : min(cur.v, prev.v) | prev.flag`` is exact: a flagged
-    cur sorts above FLAG and passes through unchanged (its run already
-    restarted), otherwise prev's flag is inherited and values min.
-    """
-    mask = jnp.int32(_FLAG - 1)
-    flag = jnp.int32(_FLAG)
-    ident = jnp.int32(_INF)  # (v=INF, b=0)
-    t = v + b * flag
-    s = 1
-    # ``limit``: stop the doubling early — propagation is then bounded by
-    # limit-1 positions (a WINDOWED scan).  Monotone-sound for the
-    # fixed-point loops (partial run-min still only moves minima within
-    # runs); the loops' violation stencils stay exact, so correctness is
-    # schedule-independent.  The take masks keep using the ARRAY bound
-    # (they exist to kill roll wrap-around, not to bound propagation).
-    while s < (size if limit is None else min(size, limit)):
-        if reverse:
-            pt = pltpu.roll(t, size - s, axis)
-            take = idx < size - s
-        else:
-            pt = pltpu.roll(t, s, axis)
-            take = idx >= s
-        pt = jnp.where(take, pt, ident)
-        # `combined` is only kept where t is UNFLAGGED (the outer where), and
-        # an unflagged t has t & mask == t — so min against the raw t saves
-        # one AND per doubling step (the flagged branch's combined value is
-        # discarded, its content is irrelevant).
-        combined = jnp.minimum(t, pt & mask) | (pt & flag)
-        t = jnp.where(t >= flag, t, combined)
-        s *= 2
-    return t & mask, (t >= flag).astype(jnp.int32)
-
-
-def _fwd_v_kernel(
-    lab_hbm,
-    y_out,
-    chg_ref,
-    win,
-    yst,
-    carry,
-    edge,  # unused here; scratch list is shared with _bwd_vh_kernel
-    sems,
-    *,
-    tile,
-    col_lo,
-    col_hi,
-    row_off=0,
-    always_write=False,
-):
-    """Pass 1 of a round: forward vertical segmented-min scan, banded, with a
-    cross-band carry row; border columns (col_lo, col_hi) pass through
-    unchanged (the reference never merges border-border vertical edges).
-
-    ``row_off``/``always_write``: the fused first pass reads the relax
-    engine's PADDED label plane directly (real rows start at ``row_off``,
-    real columns at ``col_lo``; the claimed-ness gate guarantees apron /
-    padding cells are 0 = barriers) and writes a fresh scan-geometry plane,
-    so no separate extraction/slice pass ever materialises.
-    """
-    i = pl.program_id(0)
-    gy = pl.num_programs(0)
-    slot = jax.lax.rem(i, 2)
-    nslot = 1 - slot
-    wp = win.shape[-1]
-    inf = jnp.int32(_INF)
-
-    def dma_in(s, band):
-        return pltpu.make_async_copy(
-            lab_hbm.at[pl.ds(row_off + band * tile, tile), :],
-            win.at[s],
-            sems.at[s, 0],
-        )
-
-    @pl.when(i == 0)
-    def _():
-        chg_ref[0, 0] = 0
-        carry[...] = jnp.full_like(carry, inf)
-        dma_in(slot, 0).start()
-
-    @pl.when(i + 1 < gy)
-    def _():
-        dma_in(nslot, i + 1).start()
-
-    dma_in(slot, i).wait()
-
-    x = win[slot]
-    rr = jax.lax.broadcasted_iota(jnp.int32, (tile, wp), 0)
-    cc = jax.lax.broadcasted_iota(jnp.int32, (tile, wp), 1)
-    reset = x == 0
-    v, b = _seg_min_scan(
-        jnp.where(reset, inf, x), reset.astype(jnp.int32), 0, tile, False, rr
-    )
-    # Fold the inter-band carry into rows whose segment started above the band.
-    final = jnp.where(b != 0, v, jnp.minimum(v, carry[...]))
-    carry[...] = jnp.min(
-        jnp.where(rr == tile - 1, final, inf), axis=0, keepdims=True
-    )
-    y = jnp.where(reset, 0, final)
-    y = jnp.where((cc == col_lo) | (cc == col_hi), x, y)  # border columns
-    band_chg = jnp.any(y != x)
-    chg_ref[0, 0] = jnp.maximum(chg_ref[0, 0], band_chg.astype(jnp.int32))
-
-    # In-place aliased output: an unchanged band's rows already hold the
-    # right values, so skip its write-back entirely — the certify round
-    # (every fixed point needs one clean round) then costs reads only.
-    # (The fused first pass writes a DIFFERENT plane and must always write.)
-    @pl.when(band_chg | jnp.bool_(always_write))
-    def _():
-        yst[...] = y
-        co = pltpu.make_async_copy(
-            yst, y_out.at[pl.ds(i * tile, tile), :], sems.at[slot, 1]
-        )
-        co.start()
-        co.wait()
-
-
-def _bwd_vh_kernel(
-    y_hbm,
-    out_hbm,
-    chg_ref,
-    win,
-    ost,
-    carry,
-    edge,
-    sems,
-    *,
-    tile,
-    real_h,
-    col_lo,
-    col_hi,
-):
-    """Pass 2 of a round (reversed band order): backward vertical scan (the
-    run-min is bwd(fwd(x))), then BOTH horizontal scans in-band via lane
-    doubling, then the border-row restore — no transposes anywhere.
-
-    ``chg_ref`` reports VIOLATIONS of the fixed point, not changes: the
-    component-min state is reached iff no unblocked claimed-adjacent pair
-    has differing labels (labels only copy/min-propagate, so a component's
-    minimum can never be lost — a violation-free state is constant-per-
-    component at exactly the min).  Checking that is a 2-roll stencil on
-    the pass output (plus the cross-band boundary row via the ``edge``
-    scratch, fed in reversed band order), so the driver needs NO spare
-    certify round: the loop stops on the first violation-free pass."""
-    j = pl.program_id(0)
-    gy = pl.num_programs(0)
-    i = gy - 1 - j  # bands bottom-up
-    slot = jax.lax.rem(j, 2)
-    nslot = 1 - slot
-    wp = win.shape[-1]
-    inf = jnp.int32(_INF)
-
-    def dma_in(s, band):
-        return pltpu.make_async_copy(
-            y_hbm.at[pl.ds(band * tile, tile), :], win.at[s], sems.at[s, 0]
-        )
-
-    @pl.when(j == 0)
-    def _():
-        chg_ref[0, 0] = 0
-        carry[...] = jnp.full_like(carry, inf)
-        edge[...] = jnp.zeros_like(edge)  # no band below the last
-        dma_in(slot, i).start()
-
-    @pl.when(j + 1 < gy)
-    def _():
-        dma_in(nslot, i - 1).start()
-
-    dma_in(slot, i).wait()
-
-    y = win[slot]
-    rr = jax.lax.broadcasted_iota(jnp.int32, (tile, wp), 0)
-    cc = jax.lax.broadcasted_iota(jnp.int32, (tile, wp), 1)
-    reset = y == 0
-    v, b = _seg_min_scan(
-        jnp.where(reset, inf, y), reset.astype(jnp.int32), 0, tile, True, rr
-    )
-    final = jnp.where(b != 0, v, jnp.minimum(v, carry[...]))
-    carry[...] = jnp.min(jnp.where(rr == 0, final, inf), axis=0, keepdims=True)
-    z = jnp.where(reset, 0, final)
-    z = jnp.where((cc == col_lo) | (cc == col_hi), y, z)  # border columns
-
-    # Horizontal run-min within the band (rows independent).  run-min =
-    # min(inclusive fwd prefix-min, inclusive bwd suffix-min) — exactly the
-    # segment min (both subsets include the cell and cover the run), and
-    # the two scan chains are INDEPENDENT, so the VPU can overlap one
-    # chain's roll latency with the other's combines (the sequential
-    # bwd(fwd(z)) form serialises 2·log2(wp) doubling steps).
-    zres = z == 0
-    zres_i = zres.astype(jnp.int32)
-    zv = jnp.where(zres, inf, z)
-    hf, _ = _seg_min_scan(zv, zres_i, 1, wp, False, cc)
-    hb, _ = _seg_min_scan(zv, zres_i, 1, wp, True, cc)
-    out = jnp.where(zres, 0, jnp.minimum(hf, hb))
-    # Border rows (0, real_h-1): horizontal border-border edges never merge.
-    grow = rr + i * tile
-    out = jnp.where((grow == 0) | (grow == real_h - 1), z, out)
-    band_chg = jnp.any(out != y)
-
-    # Fixed-point violation stencil (see docstring).  Vertical pairs skip
-    # the blocked border columns; horizontal pairs skip the blocked border
-    # rows and the col-0 wraparound.  The cross-band pair compares this
-    # band's LAST row with the band below's first row (held in `edge` —
-    # bands run bottom-up, so it was stored by the previous program).
-    claimed = out > 0
-    rolled_v = pltpu.roll(out, 1, 0)
-    mm_v = (
-        (out != rolled_v)
-        & claimed
-        & (rolled_v > 0)
-        & (rr >= 1)
-        & (cc != col_lo)
-        & (cc != col_hi)
-    )
-    rolled_h = pltpu.roll(out, 1, 1)
-    mm_h = (
-        (out != rolled_h)
-        & claimed
-        & (rolled_h > 0)
-        & (cc >= 1)
-        & (grow != 0)
-        & (grow != real_h - 1)
-    )
-    below = edge[...]
-    last = jnp.where(rr == tile - 1, out, 0)
-    below_b = jnp.where(rr == tile - 1, below, 0)
-    mm_b = (
-        (last != below_b)
-        & (last > 0)
-        & (below_b > 0)
-        & (cc != col_lo)
-        & (cc != col_hi)
-    )
-    viol = jnp.any(mm_v) | jnp.any(mm_h) | jnp.any(mm_b)
-    edge[...] = out[0:1, :]
-    chg_ref[0, 0] = jnp.maximum(chg_ref[0, 0], viol.astype(jnp.int32))
-
-    # In-place aliased output; skip unchanged bands (see _fwd_v_kernel).
-    @pl.when(band_chg)
-    def _():
-        ost[...] = out
-        co = pltpu.make_async_copy(
-            ost, out_hbm.at[pl.ds(i * tile, tile), :], sems.at[slot, 1]
-        )
-        co.start()
-        co.wait()
-
-
-def _round_tile(wp: int) -> int:
-    """Band height for the fused scan kernels at this padded width.
-
-    Capped at 64: the backward-vertical scan pays ceil(log2(tile)) packed
-    doubling steps per band, so SHORT bands win as long as the DMA chunks
-    stay pipelined (r7 probe_tail sweep at 4096²: tail pass 1.41 ms at
-    tile 320 / 1.31 at 128 / 1.29 at 64; copy floor flat at ~0.49)."""
-    t = (100_000_000 // (wp * 60)) // 8 * 8
-    return int(max(8, min(64, t)))
-
-
-def _tail_tile(h2: int) -> int:
-    """Largest 8-multiple band height <= 64 dividing ``h2`` (the relax
-    engine's padded height — always an 8-multiple).  The scan tail is not
-    bound to the relax band tile: any divisor grid reads the same plane,
-    and short bands cost fewer bwd-scan doubling steps (_round_tile)."""
-    for t in range(64, 7, -8):
-        if h2 % t == 0:
-            return t
-    return 8
-
-
-def _call_round_kernel(kernel, src, *, tile, interpret, out_rows=None, **kw):
-    """Invoke one banded scan pass; returns (plane, changed).
-
-    ``out_rows=None`` aliases the plane in-place (kernels write only changed
-    bands; unchanged bands' rows are already correct in the donated buffer).
-    A fused first pass sets ``out_rows`` to emit a fresh scan-geometry plane
-    from a larger padded source (no aliasing possible there)."""
-    hp, wp = src.shape
-    alias = out_rows is None
-    if out_rows is None:
-        out_rows = hp
-    gy = out_rows // tile
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=0,
-        grid=(gy,),
-        in_specs=[pl.BlockSpec(memory_space=pl.ANY)],
-        out_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((2, tile, wp), jnp.int32),
-            pltpu.VMEM((tile, wp), jnp.int32),
-            pltpu.VMEM((1, wp), jnp.int32),
-            pltpu.VMEM((1, wp), jnp.int32),
-            pltpu.SemaphoreType.DMA((2, 2)),
-        ],
-    )
-    out, chg = pl.pallas_call(
-        partial(kernel, tile=tile, **kw),
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((out_rows, wp), jnp.int32),
-            jax.ShapeDtypeStruct((1, 1), jnp.int32),
-        ],
-        input_output_aliases={0: 0} if alias else {},
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=112 * 1024 * 1024
-        ),
-        interpret=interpret,
-    )(src)
-    return out, chg[0, 0] > 0
-
-
-def _component_min_pallas(labels, h, w, tile, interpret):
-    """Fixed point of the fused scan rounds.
-
-    Convergence witness: pass 2 (_bwd_vh_kernel) reports fixed-point
-    VIOLATIONS — unblocked claimed-adjacent pairs with differing labels.
-    Labels only copy/min-propagate, so a component's minimum is never
-    lost: a violation-free state is constant-per-component at exactly the
-    min, i.e. the unique fixed point.  The loop therefore stops on the
-    first violation-free pass-2 output (no spare certify round), and the
-    next round's forward pass runs only when a violation was seen.  NB a
-    clean fwd-vertical CHANGE flag alone would NOT certify (fwd-clean !=
-    run-min-clean: a column [5, 3] is fwd-stable but bwd lowers row 0) —
-    which is why the witness is the violation stencil, not change flags."""
-    wp = -(-w // 128) * 128
-    tile = tile or _round_tile(wp)
-    hp = -(-h // tile) * tile
-    if (hp, wp) != (h, w):
-        lab0 = jnp.zeros((hp, wp), dtype=jnp.int32)
-        lab0 = jax.lax.dynamic_update_slice(lab0, labels, (0, 0))
-    else:
-        lab0 = labels
-
-    y0, _ = _call_round_kernel(
-        _fwd_v_kernel, lab0, tile=tile, interpret=interpret,
-        col_lo=0, col_hi=w - 1,
-    )
-
-    # Round schedule note (r11): an alternating single-pass schedule
-    # (bwd_vh / fwd_vh, one plane pass per round) was built and HARDWARE-
-    # MEASURED SLOWER on the ~53-round NaN-masked regime (170.7 vs 187.1
-    # Mpix/s at 4096²/10%): one v-direction per round needs ~2x the rounds,
-    # and each round pays the EXPENSIVE horizontal lane-doubling scans
-    # (0.60 of the 1.09 ms pass) — the fwd+bwd_vh round amortises one h
-    # over a complete vertical run-min.  Kept: the two-pass round below.
-    def body(state):
-        y, _ = state
-        out, viol = _call_round_kernel(
-            _bwd_vh_kernel, y, tile=tile, interpret=interpret,
-            real_h=h, col_lo=0, col_hi=w - 1,
-        )
-        y2 = jax.lax.cond(
-            viol,
-            lambda o: _call_round_kernel(
-                _fwd_v_kernel, o, tile=tile, interpret=interpret,
-                col_lo=0, col_hi=w - 1,
-            )[0],
-            lambda o: o,
-            out,
-        )
-        return y2, viol
-
-    out, _ = jax.lax.while_loop(lambda s: s[1], body, (y0, jnp.bool_(True)))
-    return jax.lax.slice(out, (0, 0), (h, w))
-
-
-def component_min_from_padded(
-    lab_pad,
-    *,
-    p: int,
-    h: int,
-    w: int,
-    tile: int,
-    interpret: bool = False,
-    y0=None,
-    y0_valid=None,
-    col_off: int | None = None,
-):
-    """Component-min labels straight from the relax engine's padded label
-    plane — the merging variant's final-label tail with ZERO extraction
-    passes.
-
-    ``lab_pad`` is the (h2 + 2p, wp) plane from ops.pallas_relax's fixed
-    point, real data at rows [p, p+h), cols [col_off, col_off+w) (col_off
-    defaults to p — the full-width band geometry; the column-blocked kernel
-    passes _STRIPE_HALO); ``tile`` is the relax band height (which divides
-    h2 by construction).  Preconditions supplied
-    by the relax kernel: the claimed-ness gate pins every unclaimed cell
-    (aprons, lane padding, NEVER_FILL, borders) at 0, so out-of-domain cells
-    are scan barriers without any masking, and this is only valid at full
-    depth (max_water_level == NORMAL_MAX) where no claim needs masking.
-
-    The fused first pass reads rows [p, p + h2) (trailing apron rows are
-    zero barriers) via row-offset DMA and emits a fresh (h2, wp) plane;
-    every later pass runs in-place on that plane.  Cropping happens once at
-    the end.  Bit-identical to component_min_labels(labels) on the sliced
-    plane (pinned by tests).
-
-    ``y0``/``y0_valid``: an optionally pre-computed pass-1 plane from the
-    relax kernel's fused fwd-scan epilogue
-    (ops.pallas_relax.relax_fixed_point_fused).  When ``y0_valid`` is True
-    the standalone forward pass (a full read of the label plane) is skipped;
-    otherwise it runs here as usual — bit-identical either way.
-    """
-    hp_src, wp = lab_pad.shape
-    h2 = hp_src - 2 * p
-    if h2 % tile:
-        raise ValueError(f"relax tile {tile} must divide padded height {h2}")
-    if col_off is None:
-        col_off = p
-    col_lo, col_hi = col_off, col_off + w - 1
-    # The tail's own band height: short bands pay fewer bwd-scan doubling
-    # steps (see _round_tile); any 8-multiple divisor of h2 reads the same
-    # plane, so the tail is NOT bound to the relax band tile.
-    tile = _tail_tile(h2) if h2 % 8 == 0 else tile
-
-    def _fwd(lab_pad):
-        return _call_round_kernel(
-            _fwd_v_kernel, lab_pad, tile=tile, interpret=interpret,
-            out_rows=h2, col_lo=col_lo, col_hi=col_hi, row_off=p,
-            always_write=True,
-        )[0]
-
-    if y0 is None:
-        y0 = _fwd(lab_pad)
-    else:
-        y0 = jax.lax.cond(
-            y0_valid, lambda args: args[0], lambda args: _fwd(args[1]),
-            (y0, lab_pad),
-        )
-
-    # Two-pass rounds (see _component_min_pallas's schedule note — the
-    # alternating single-pass variant measured slower on hardware).
-    # viol == False is the full fixed-point certificate.
-    def body(state):
-        y, _ = state
-        out, viol = _call_round_kernel(
-            _bwd_vh_kernel, y, tile=tile, interpret=interpret,
-            real_h=h, col_lo=col_lo, col_hi=col_hi,
-        )
-        y2 = jax.lax.cond(
-            viol,
-            lambda o: _call_round_kernel(
-                _fwd_v_kernel, o, tile=tile, interpret=interpret,
-                col_lo=col_lo, col_hi=col_hi,
-            )[0],
-            lambda o: o,
-            out,
-        )
-        return y2, viol
-
-    out, _ = jax.lax.while_loop(lambda s: s[1], body, (y0, jnp.bool_(True)))
-    return jax.lax.slice(out, (0, col_off), (h, col_off + w))
-
-
-def _vscan_jnp(lab):
-    """Segmented run-min per column via associative scan (CPU fallback)."""
+def _vscan(lab):
+    """Segmented run-min per column via associative scan."""
     big = jnp.int32(2**30)
 
     def combine(a, b):
@@ -570,47 +55,20 @@ def _vscan_jnp(lab):
     return run_min(run_min(lab, False), True)
 
 
-def component_min_labels(
-    labels, *, use_pallas: bool = True, interpret: bool = False,
-    tile: int | None = None, max_label: int | None = None,
-):
+def component_min_labels(labels, *, collect_rounds: bool = False):
     """Replace every 4-connected component of nonzero labels (blocked
     border-border edges excluded) by its minimum label.
 
     Bit-equivalent to iterating ops.merge.merge_touching to exhaustion; this
     is the merging variant's final-level output given segmenting labels.
-
-    ``use_pallas=True`` runs the fused-round kernels (two banded passes per
-    v+h round, no transposes, in-kernel convergence flags); ``False`` runs
-    the jnp associative-scan formulation (CPU fallback / readable oracle).
-    ``max_label`` (static): when the caller can bound the labels below
-    2^24 (e.g. run_levels' n_labels bucket), the Pallas path runs the
-    2x-row-coarsened engine (component_min_coarse_from_padded) — the r11
-    general-tail accelerator — on an 8-row zero-margined embedding of the
-    plane; otherwise the fine fixed point runs as before.  Bit-identical
-    either way (tests/test_merge_fast.py).  NB ``tile`` applies only to the
-    fine Pallas path: the coarse engine sizes its own bands (_tail_tile of
-    the coarse height) and ignores it.
+    ``collect_rounds=True`` also returns the number of v+h rounds run (the
+    last one observes the fixed point).
     """
     labels = jnp.asarray(labels, dtype=jnp.int32)
     h, w = labels.shape
 
-    if use_pallas:
-        # w >= 3: with fewer than 3 columns every column is a border
-        # column — the coarse system would be empty while the fine engine
-        # still h-merges the two columns per row (advisor r4 finding).
-        if max_label is not None and max_label < (1 << 24) and w >= 3:
-            h16 = -(-h // 16) * 16
-            wp = -(-w // 128) * 128
-            lab_pad = jnp.zeros((h16 + 16, wp), jnp.int32)
-            lab_pad = jax.lax.dynamic_update_slice(lab_pad, labels, (8, 0))
-            return component_min_coarse_from_padded(
-                lab_pad, p=8, h=h, w=w, interpret=interpret, col_off=0
-            )
-        return _component_min_pallas(labels, h, w, tile, interpret)
-
     def vscan(x):
-        out = _vscan_jnp(x)
+        out = _vscan(x)
         # Blocked vertical edges: both endpoints in column 0 / W-1 are
         # border pixels.  The scan is per-column, so restoring the two
         # columns removes exactly those propagations.
@@ -619,861 +77,19 @@ def component_min_labels(
         return out
 
     def hscan(x):
-        xt = vscan_t(x.T)
-        return xt.T
-
-    def vscan_t(xt):
-        out = _vscan_jnp(xt)
+        xt = x.T
+        out = _vscan(xt)
         # Blocked horizontal edges: rows 0 / H-1 become columns here.
         out = jax.lax.dynamic_update_slice(out, xt[:, :1], (0, 0))
         out = jax.lax.dynamic_update_slice(out, xt[:, -1:], (0, h - 1))
-        return out
+        return out.T
 
     def body(state):
-        lab, _ = state
+        lab, _, n = state
         new = hscan(vscan(lab))
-        return new, jnp.any(new != lab)
+        return new, jnp.any(new != lab), n + 1
 
-    out, _ = jax.lax.while_loop(
-        lambda s: s[1], body, (labels, jnp.bool_(True))
+    out, _, n = jax.lax.while_loop(
+        lambda s: s[1], body, (labels, jnp.bool_(True), jnp.int32(0))
     )
-    return out
-
-
-# ---------------------------------------------------------------------------
-# 2x-row-coarsened component-min engine (r11) — the general (NaN / border-
-# seed) merging tail.
-#
-# A coarse cell is one column's fine row pair (2i, 2i+1).  EXACTNESS: a 2x1
-# block's claimed cells are ALWAYS internally 4-connected (they are
-# vertically adjacent), so contracting each block to one graph node with
-#   * node value  = min of its claimed fine labels (0 when both unclaimed),
-#   * v-edge(i-1, i)  iff  fine pair (2i-1, 2i) both claimed,
-#   * h-edge(j-1, j)  iff  (top_{j-1} & top_j) | (bot_{j-1} & bot_j),
-#     each half masked by the blocked-border-row rule,
-# yields a graph whose components are exactly the images of the fine
-# components and whose component minima coincide — so the coarse fixed
-# point broadcast back to claimed fine cells IS the fine fixed point
-# (prototyped + union-find-verified; tests/test_merge_fast.py).  The ONE
-# exception is the border columns: their vertical pairs are BLOCKED
-# (border-border), so a border 2x1 block may be internally disconnected —
-# border columns are excluded from the coarse system entirely and their
-# only unblocked edges (horizontal, into columns col_lo+1 / col_hi-1, same
-# fine row, rows 1..real_h-2) are folded in before the scans and resolved
-# after the broadcast.  2x further coarsening is NOT exact (a 2x1 block of
-# coarse cells is internally connected only when its v-edge exists), so
-# one level is all there is.
-#
-# Why: the hole-laced (NaN-masked) regime runs ~50+ scan rounds at 4096²
-# (probe_nan_tail r11: 53 rounds, 79.5 ms of the 91 ms e2e).  The coarse
-# plane halves every pass's row count AND lengthens effective h-runs (an
-# h-barrier in one fine row no longer breaks the run if the other row
-# connects), dropping the round count too (measured in the numpy
-# prototype: 21 -> 14 rounds at 1024²/10%).
-#
-# Plane layout: int32 = value (bits 0..23; labels are < 2^24 — the caller
-# gates on n_labels) | 4 direction-dependent scan reset bits.  Edge-based
-# resets are NOT symmetric like barrier cells: the forward reset at i is
-# "no edge (i-1, i)", the backward reset at i is "no edge (i, i+1)".
-# ---------------------------------------------------------------------------
-
-_CVAL = (1 << 24) - 1
-_CB_VF = 24  # fwd-v reset bit
-_CB_VB = 25  # bwd-v reset bit
-_CB_HF = 26  # fwd-h reset bit
-_CB_HB = 27  # bwd-h reset bit
-
-
-def _coarsen_kernel(
-    lab_hbm,
-    c_out,
-    chg_ref,
-    win,
-    cst,
-    carry,
-    edge,  # carry/edge unused; scratch layout shared with the round kernels
-    sems,
-    *,
-    tile,
-    p,
-    real_h,
-    col_lo,
-    col_hi,
-    out_off=0,
-):
-    """Build the packed coarse plane from the relax engine's padded labels.
-
-    Band i emits coarse rows [i·t, i·t + t) from fine rows
-    [p + 2it, p + 2it + 2t), DMA'd with an 8-row halo on BOTH sides (the
-    apron rows of lab_pad are unclaimed zeros, so band 0 / the last band
-    read valid barrier halos): the halo provides fine rows 2r-1 / 2r+2 for
-    the v-edge bits of the band's boundary rows."""
-    i = pl.program_id(0)
-    gy = pl.num_programs(0)
-    slot = jax.lax.rem(i, 2)
-    nslot = 1 - slot
-    wp = win.shape[-1]
-    t = tile
-    inf = jnp.int32(_INF)
-
-    def dma_in(s, band):
-        return pltpu.make_async_copy(
-            lab_hbm.at[pl.ds(p + band * 2 * t - 8, 2 * t + 16), :],
-            win.at[s],
-            sems.at[s, 0],
-        )
-
-    @pl.when(i == 0)
-    def _():
-        chg_ref[0, 0] = 0
-        dma_in(slot, 0).start()
-
-    @pl.when(i + 1 < gy)
-    def _():
-        dma_in(nslot, i + 1).start()
-
-    dma_in(slot, i).wait()
-
-    x = win[slot]  # (2t + 16, wp) fine labels, band rows at [8, 8 + 2t)
-    pairs = x[8 : 8 + 2 * t, :].reshape(t, 2, wp)
-    top = pairs[:, 0, :]
-    bot = pairs[:, 1, :]
-    # fine row 2r-1 (bot of the coarse row above) / 2r+2 (top of the one
-    # below), via the same reshape trick on shifted windows.
-    prev_bot = x[7 : 7 + 2 * t, :].reshape(t, 2, wp)[:, 0, :]
-    next_top = x[10 : 10 + 2 * t, :].reshape(t, 2, wp)[:, 0, :]
-
-    rr = jax.lax.broadcasted_iota(jnp.int32, (t, wp), 0)
-    cc = jax.lax.broadcasted_iota(jnp.int32, (t, wp), 1)
-    grow2 = (rr + i * t) * 2  # global fine row of the top half
-
-    tcl = top != 0
-    bcl = bot != 0
-    val = jnp.minimum(
-        jnp.where(tcl, top, inf), jnp.where(bcl, bot, inf)
-    )
-    val = jnp.where(tcl | bcl, val, jnp.int32(0))
-
-    # Border-column folds: a border cell merges with the SAME-FINE-ROW
-    # interior neighbour (rows 1..real_h-2 only; h-edges in rows 0 and
-    # real_h-1 are border-border, blocked).
-    interior_c = (cc > col_lo) & (cc < col_hi)
-    for half, plane, cl, growh in (
-        (0, top, tcl, grow2),
-        (1, bot, bcl, grow2 + 1),
-    ):
-        row_ok = (growh != 0) & (growh != real_h - 1)
-        for nb, is_lo in ((pltpu.roll(plane, 1, 1), True),
-                          (pltpu.roll(plane, wp - 1, 1), False)):
-            at = cc == (col_lo + 1 if is_lo else col_hi - 1)
-            fold = at & cl & (nb != 0) & row_ok
-            val = jnp.where(
-                fold, jnp.minimum(val, nb & jnp.int32(_CVAL)), val
-            )
-    # Border columns leave the coarse system (empty nodes).
-    val = jnp.where((cc == col_lo) | (cc == col_hi), jnp.int32(0), val)
-    empty = val == 0
-
-    # v-reset bits (direction-dependent; see the block comment).
-    vf = empty | jnp.logical_not((prev_bot != 0) & tcl)
-    vb = empty | jnp.logical_not(bcl & (next_top != 0))
-
-    # h-edge masks: claimed halves, excluding border columns and the
-    # blocked border rows of each half.  Mosaic cannot rotate i1 vectors
-    # ("Rotate with non-32-bit data"), so the rolled masks ride int32.
-    tcl_e = (
-        tcl & interior_c & (grow2 != 0) & (grow2 != real_h - 1)
-    ).astype(jnp.int32)
-    bcl_e = (bcl & interior_c & (grow2 + 1 != real_h - 1)).astype(jnp.int32)
-    hedge = (pltpu.roll(tcl_e, 1, 1) & tcl_e) | (
-        pltpu.roll(bcl_e, 1, 1) & bcl_e
-    )
-    hf = empty | (hedge == 0)
-    hb = empty | (pltpu.roll(hedge, wp - 1, 1) == 0)
-
-    c = (
-        val
-        | (vf.astype(jnp.int32) << _CB_VF)
-        | (vb.astype(jnp.int32) << _CB_VB)
-        | (hf.astype(jnp.int32) << _CB_HF)
-        | (hb.astype(jnp.int32) << _CB_HB)
-    )
-    # Apron rows for the multi-round engine (out_off=8): zero blocks above
-    # and below the coarse data.  Zero = empty cell; adjacent real rows'
-    # reset bits were computed from the fine plane's zero aprons, so the
-    # flag-less zero rows are inert barriers (see _cmulti_kernel).
-    if out_off:
-        @pl.when(i == 0)
-        def _():
-            cst[...] = jnp.zeros_like(cst)
-            za = pltpu.make_async_copy(
-                cst.at[pl.ds(0, out_off), :],
-                c_out.at[pl.ds(0, out_off), :],
-                sems.at[slot, 1],
-            )
-            za.start()
-            za.wait()
-
-        @pl.when(i == gy - 1)
-        def _():
-            cst[...] = jnp.zeros_like(cst)
-            zb = pltpu.make_async_copy(
-                cst.at[pl.ds(0, out_off), :],
-                c_out.at[pl.ds(out_off + gy * t, out_off), :],
-                sems.at[slot, 1],
-            )
-            zb.start()
-            zb.wait()
-
-    cst[...] = c
-    co = pltpu.make_async_copy(
-        cst, c_out.at[pl.ds(out_off + i * t, t), :], sems.at[slot, 1]
-    )
-    co.start()
-    co.wait()
-
-
-def _cfwd_v_kernel(
-    c_hbm,
-    c_out,
-    chg_ref,
-    win,
-    cst,
-    carry,
-    edge,  # edge unused
-    sems,
-    *,
-    tile,
-):
-    """Coarse pass 1: forward vertical scan under the packed vf reset bits
-    (banded, cross-band carry) — the coarse mirror of _fwd_v_kernel."""
-    i = pl.program_id(0)
-    gy = pl.num_programs(0)
-    slot = jax.lax.rem(i, 2)
-    nslot = 1 - slot
-    wp = win.shape[-1]
-    inf = jnp.int32(_INF)
-
-    def dma_in(s, band):
-        return pltpu.make_async_copy(
-            c_hbm.at[pl.ds(band * tile, tile), :], win.at[s], sems.at[s, 0]
-        )
-
-    @pl.when(i == 0)
-    def _():
-        chg_ref[0, 0] = 0
-        carry[...] = jnp.full_like(carry, inf)
-        dma_in(slot, 0).start()
-
-    @pl.when(i + 1 < gy)
-    def _():
-        dma_in(nslot, i + 1).start()
-
-    dma_in(slot, i).wait()
-
-    c = win[slot]
-    x = c & jnp.int32(_CVAL)
-    empty = x == 0
-    vf = jax.lax.shift_right_logical(c, _CB_VF) & 1
-    rr = jax.lax.broadcasted_iota(jnp.int32, (tile, wp), 0)
-    v, b = _seg_min_scan(jnp.where(empty, inf, x), vf, 0, tile, False, rr)
-    final = jnp.where(b != 0, v, jnp.minimum(v, carry[...]))
-    carry[...] = jnp.min(
-        jnp.where(rr == tile - 1, final, inf), axis=0, keepdims=True
-    )
-    y = jnp.where(empty, jnp.int32(0), final)
-    band_chg = jnp.any(y != x)
-    chg_ref[0, 0] = jnp.maximum(chg_ref[0, 0], band_chg.astype(jnp.int32))
-
-    @pl.when(band_chg)
-    def _():
-        cst[...] = (c & jnp.int32(~_CVAL)) | y
-        co = pltpu.make_async_copy(
-            cst, c_out.at[pl.ds(i * tile, tile), :], sems.at[slot, 1]
-        )
-        co.start()
-        co.wait()
-
-
-def _cbwd_vh_kernel(
-    c_hbm,
-    c_out,
-    chg_ref,
-    win,
-    cst,
-    carry,
-    edge,
-    sems,
-    *,
-    tile,
-    h_window=None,
-):
-    """Coarse pass 2 (reversed band order): backward vertical scan + both
-    horizontal scans under the packed reset bits + the violation stencil —
-    the coarse mirror of _bwd_vh_kernel.  A violation-free pass certifies
-    the coarse fixed point (same argument as the fine kernel: values only
-    min-propagate within components, the min cell never rises, so an
-    edge-consistent state is constant-per-component at exactly the min)."""
-    j = pl.program_id(0)
-    gy = pl.num_programs(0)
-    i = gy - 1 - j  # bands bottom-up
-    slot = jax.lax.rem(j, 2)
-    nslot = 1 - slot
-    wp = win.shape[-1]
-    inf = jnp.int32(_INF)
-
-    def dma_in(s, band):
-        return pltpu.make_async_copy(
-            c_hbm.at[pl.ds(band * tile, tile), :], win.at[s], sems.at[s, 0]
-        )
-
-    @pl.when(j == 0)
-    def _():
-        chg_ref[0, 0] = 0
-        carry[...] = jnp.full_like(carry, inf)
-        edge[...] = jnp.zeros_like(edge)  # no band below the last
-        dma_in(slot, i).start()
-
-    @pl.when(j + 1 < gy)
-    def _():
-        dma_in(nslot, i - 1).start()
-
-    dma_in(slot, i).wait()
-
-    c = win[slot]
-    x = c & jnp.int32(_CVAL)
-    empty = x == 0
-    vb = jax.lax.shift_right_logical(c, _CB_VB) & 1
-    hf = jax.lax.shift_right_logical(c, _CB_HF) & 1
-    hb = jax.lax.shift_right_logical(c, _CB_HB) & 1
-    vf = jax.lax.shift_right_logical(c, _CB_VF) & 1
-    rr = jax.lax.broadcasted_iota(jnp.int32, (tile, wp), 0)
-    cc = jax.lax.broadcasted_iota(jnp.int32, (tile, wp), 1)
-
-    v, b = _seg_min_scan(jnp.where(empty, inf, x), vb, 0, tile, True, rr)
-    final = jnp.where(b != 0, v, jnp.minimum(v, carry[...]))
-    carry[...] = jnp.min(jnp.where(rr == 0, final, inf), axis=0, keepdims=True)
-    z = jnp.where(empty, jnp.int32(0), final)
-
-    zv = jnp.where(empty, inf, z)
-    hfv, _ = _seg_min_scan(zv, hf, 1, wp, False, cc, limit=h_window)
-    hbv, _ = _seg_min_scan(zv, hb, 1, wp, True, cc, limit=h_window)
-    out = jnp.where(empty, jnp.int32(0), jnp.minimum(hfv, hbv))
-    band_chg = jnp.any(out != x)
-
-    # Violation stencil over the coarse edges: a reset bit of 0 IS the
-    # edge-present certificate (the bits fold in emptiness).
-    rolled_v = pltpu.roll(out, 1, 0)
-    mm_v = (out != rolled_v) & (vf == 0) & (rr >= 1)
-    rolled_h = pltpu.roll(out, 1, 1)
-    mm_h = (out != rolled_h) & (hf == 0) & (cc >= 1)
-    below = edge[...]
-    last = jnp.where(rr == tile - 1, out, 0)
-    below_b = jnp.where(rr == tile - 1, below, 0)
-    mm_b = (last != below_b) & (jnp.where(rr == tile - 1, vb, 1) == 0)
-    viol = jnp.any(mm_v) | jnp.any(mm_h) | jnp.any(mm_b)
-    edge[...] = out[0:1, :]
-    chg_ref[0, 0] = jnp.maximum(chg_ref[0, 0], viol.astype(jnp.int32))
-
-    @pl.when(band_chg)
-    def _():
-        cst[...] = (c & jnp.int32(~_CVAL)) | out
-        co = pltpu.make_async_copy(
-            cst, c_out.at[pl.ds(i * tile, tile), :], sems.at[slot, 1]
-        )
-        co.start()
-        co.wait()
-
-
-def _multi_tile(hc: int) -> int:
-    """Largest multiple-of-8 divisor of ``hc`` <= 64 — the multi-round
-    kernel's band height.  SHORT bands maximise the Gauss-Seidel chaining
-    (more sequential band hand-offs per round): the numpy round sim at
-    10% dots measured rounds 14 at T=256/k=2 vs **5 at T=64/k=2** (flat
-    in image size: 5/5/7 at 512/1024/2048), and short bands also pay
-    fewer v-scan doubling steps (_round_tile's reasoning)."""
-    for t in range(min(64, hc) // 8 * 8, 7, -8):
-        if hc % t == 0:
-            return t
-    return 8
-
-
-def _cmulti_kernel(
-    c_hbm,
-    c_out,
-    chg_ref,
-    win,
-    cst,
-    sems,
-    *,
-    tile,
-    k,
-    up,
-    h_window,
-    full_h=False,
-):
-    """Fused multi-iteration coarse round (r12) — the sub-linear-work
-    replacement for the (_cbwd_vh + cond _cfwd_v) two-pass round.
-
-    One banded pass per ROUND: each band is DMA'd with an 8-row halo on
-    both sides (the plane carries an 8-row zero apron top and bottom) and
-    relaxed IN VMEM for ``k`` sub-iterations of {fwd-v, bwd-v, h-fwd,
-    h-bwd} segmented scans before one write-back.  Band order alternates
-    per round (``up=True``: bottom-up): the halo on the already-processed
-    side holds THIS round's output — a Gauss-Seidel chain that carries
-    mins across the whole plane in one round per direction — while the
-    other side's halo is one round stale.  Staleness is sound by the
-    monotone-asynchronous-iteration argument (values only min-propagate
-    within components; using older values can only delay, never corrupt),
-    and the violation stencil below certifies the fixed point exactly, so
-    the final plane is bit-identical to every other schedule.  Numpy
-    round-count sim at 10% NaN dots (r12): k=3 collapses 34 rounds to ~5
-    at 1024² and the count is ~flat in image size — the Gauss-Seidel
-    chain replaces the O(diameter/run) round growth of the Jacobi-style
-    two-pass rounds.
-
-    Split DMA prefetch: only the 8 halo rows on the side facing the
-    previously-processed band overlap that band's written rows (the
-    freshness that IS the chaining mechanism), so the window fetch splits
-    into a HEAD (tile + 8 rows, prefetched one band ahead, overlapping
-    this band's compute) and a deferred 8-row TAIL started right after the
-    previous band's write completes — pipelining 15/16 of the input bytes
-    without ever reading a stale fresh-side halo.
-
-    Convergence: CHANGE-based (a round in which no band changed anything
-    certifies the fixed point under arbitrary halo staleness — see the
-    in-kernel comment; the r12 fuzz episode showed edge-stencil witnesses
-    silently trust halo freshness that neither interpret mode nor DMA
-    ordering guarantees)."""
-    j = pl.program_id(0)
-    gy = pl.num_programs(0)
-    i = gy - 1 - j if up else j
-    ni = i - 1 if up else i + 1  # band the NEXT program will process
-    slot = jax.lax.rem(j, 2)
-    nslot = 1 - slot
-    wp = win.shape[-1]
-    tw = tile + 16
-    inf = jnp.int32(_INF)
-
-    # Deferred 8-row tail = the halo facing the previously-processed band:
-    # bottom-up processes high bands first, so the fresh side is BELOW the
-    # band (the window's last 8 rows); top-down mirrors.
-    t_off = tile + 8 if up else 0
-
-    def dma_head(s, band):
-        off = 0 if up else 8
-        return pltpu.make_async_copy(
-            c_hbm.at[pl.ds(band * tile + off, tile + 8), :],
-            win.at[s, pl.ds(off, tile + 8), :],
-            sems.at[s, 0],
-        )
-
-    def dma_tail(s, band):
-        return pltpu.make_async_copy(
-            c_hbm.at[pl.ds(band * tile + t_off, 8), :],
-            win.at[s, pl.ds(t_off, 8), :],
-            sems.at[s, 1],
-        )
-
-    @pl.when(j == 0)
-    def _():
-        chg_ref[0, 0] = 0
-        dma_head(slot, i).start()
-        dma_tail(slot, i).start()
-
-    @pl.when(j + 1 < gy)
-    def _():
-        dma_head(nslot, ni).start()
-
-    dma_head(slot, i).wait()
-    dma_tail(slot, i).wait()
-
-    c = win[slot]
-    x = c & jnp.int32(_CVAL)
-    empty = x == 0
-    vf = jax.lax.shift_right_logical(c, _CB_VF) & 1
-    vb = jax.lax.shift_right_logical(c, _CB_VB) & 1
-    hf = jax.lax.shift_right_logical(c, _CB_HF) & 1
-    hb = jax.lax.shift_right_logical(c, _CB_HB) & 1
-    rr = jax.lax.broadcasted_iota(jnp.int32, (tw, wp), 0)
-    cc = jax.lax.broadcasted_iota(jnp.int32, (tw, wp), 1)
-
-    v = jnp.where(empty, inf, x)
-    for step in range(k):
-        v, _ = _seg_min_scan(v, vf, 0, tw, False, rr)
-        v, _ = _seg_min_scan(v, vb, 0, tw, True, rr)
-        # full_h (round 0, sub-iteration 0 only): one full-width h pass so
-        # long blob-field runs converge immediately; every other h is
-        # windowed (r11 schedule, measured best on every workload).
-        lim = None if (full_h and step == 0) else h_window
-        a, _ = _seg_min_scan(v, hf, 1, wp, False, cc, limit=lim)
-        b2, _ = _seg_min_scan(v, hb, 1, wp, True, cc, limit=lim)
-        v = jnp.minimum(a, b2)
-    out = jnp.where(empty, jnp.int32(0), v)
-
-    # CHANGE-BASED convergence certificate — no violation stencil.  The
-    # r12 fuzz episode proved halo FRESHNESS is not a dependable witness
-    # input (hardware DMA ordering aside, interpret mode's aliased
-    # cross-program reads see the call-input plane), so the exit condition
-    # is "a full round during which NO band changed anything", which is
-    # sound under ARBITRARY staleness: suppose edge (u, v) with final
-    # values u < v survived a no-change round.  v's owner band read some
-    # view u' of u with u_final <= u' <= u_roundstart; had u' < v it
-    # would have lowered v (a change).  So u' >= v > u_final, i.e. u was
-    # lowered DURING the round — but then u's owner changed something and
-    # the round was not change-free.  Contradiction; a change-free round
-    # certifies the fixed point.  (Costs at most one extra quiescent
-    # round vs an edge stencil; the dropped stencil pays for part of it.)
-    band_chg = jnp.any(out[8 : 8 + tile] != x[8 : 8 + tile])
-    chg_ref[0, 0] = jnp.maximum(chg_ref[0, 0], band_chg.astype(jnp.int32))
-
-    @pl.when(band_chg)
-    def _():
-        cst[...] = (c[8 : 8 + tile] & jnp.int32(~_CVAL)) | out[8 : 8 + tile]
-        co = pltpu.make_async_copy(
-            cst, c_out.at[pl.ds(8 + i * tile, tile), :], sems.at[slot, 2]
-        )
-        co.start()
-        co.wait()
-
-    # Deferred fresh-side tail for the NEXT band — started only after this
-    # band's write landed (or was skipped: the rows are then already
-    # current in the aliased plane).
-    @pl.when(j + 1 < gy)
-    def _():
-        dma_tail(nslot, ni).start()
-
-
-def _call_multi_kernel(src, *, tile, k, up, h_window, interpret, full_h=False):
-    """One multi-iteration round over the apron-padded coarse plane;
-    returns (plane, violated).  In-place aliased like the legacy rounds."""
-    hp, wp = src.shape
-    gy = (hp - 16) // tile
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=0,
-        grid=(gy,),
-        in_specs=[pl.BlockSpec(memory_space=pl.ANY)],
-        out_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((2, tile + 16, wp), jnp.int32),
-            pltpu.VMEM((tile, wp), jnp.int32),
-            pltpu.SemaphoreType.DMA((2, 3)),
-        ],
-    )
-    out, chg = pl.pallas_call(
-        partial(
-            _cmulti_kernel, tile=tile, k=k, up=up, h_window=h_window,
-            full_h=full_h,
-        ),
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((hp, wp), jnp.int32),
-            jax.ShapeDtypeStruct((1, 1), jnp.int32),
-        ],
-        input_output_aliases={0: 0},
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=112 * 1024 * 1024
-        ),
-        interpret=interpret,
-    )(src)
-    return out, chg[0, 0] > 0
-
-
-def _broadcast_kernel(
-    c_hbm,
-    lab_hbm,
-    out_hbm,
-    win_c,
-    win_f,
-    ost,
-    sems,
-    *,
-    tile,
-    p,
-    real_h,
-    col_lo,
-    col_hi,
-    row_off=0,
-):
-    """Expand the converged coarse plane back to fine: every claimed fine
-    cell takes its coarse cell's value (exact — the 2x1 block is internally
-    connected), then the border columns resolve against their same-row
-    interior neighbour's final value (min when merged, own label when the
-    neighbour is unclaimed or the row is a blocked border row)."""
-    i = pl.program_id(0)
-    gy = pl.num_programs(0)
-    slot = jax.lax.rem(i, 2)
-    nslot = 1 - slot
-    wp = win_c.shape[-1]
-    t = tile
-
-    def dma_in(s, band):
-        return (
-            pltpu.make_async_copy(
-                c_hbm.at[pl.ds(row_off + band * t, t), :],
-                win_c.at[s],
-                sems.at[s, 0],
-            ),
-            pltpu.make_async_copy(
-                lab_hbm.at[pl.ds(p + band * 2 * t, 2 * t), :],
-                win_f.at[s],
-                sems.at[s, 1],
-            ),
-        )
-
-    @pl.when(i == 0)
-    def _():
-        for d in dma_in(slot, 0):
-            d.start()
-
-    @pl.when(i + 1 < gy)
-    def _():
-        for d in dma_in(nslot, i + 1):
-            d.start()
-
-    for d in dma_in(slot, i):
-        d.wait()
-
-    cval = win_c[slot] & jnp.int32(_CVAL)  # (t, wp)
-    lab = win_f[slot]  # (2t, wp) fine labels
-    v2 = jnp.broadcast_to(cval[:, None, :], (t, 2, wp)).reshape(2 * t, wp)
-    out = jnp.where(lab != 0, v2, jnp.int32(0))
-
-    # Border columns: merge with the same-row interior neighbour's final
-    # value in rows 1..real_h-2; otherwise keep the own label.
-    rr = jax.lax.broadcasted_iota(jnp.int32, (2 * t, wp), 0)
-    cc = jax.lax.broadcasted_iota(jnp.int32, (2 * t, wp), 1)
-    grow = rr + i * 2 * t
-    row_ok = (grow != 0) & (grow != real_h - 1)
-    for shift, bcol in ((wp - 1, col_lo), (1, col_hi)):
-        nb = pltpu.roll(out, shift, 1)  # neighbour's broadcast value
-        at = cc == bcol
-        merged = at & (lab != 0) & (nb != 0) & row_ok
-        bv = jnp.where(
-            merged, jnp.minimum(lab, nb), jnp.where(lab != 0, lab, 0)
-        )
-        out = jnp.where(at, bv, out)
-
-    ost[...] = out
-    co = pltpu.make_async_copy(
-        ost, out_hbm.at[pl.ds(i * 2 * t, 2 * t), :], sems.at[slot, 2]
-    )
-    co.start()
-    co.wait()
-
-
-def component_min_coarse_from_padded(
-    lab_pad,
-    *,
-    p: int,
-    h: int,
-    w: int,
-    interpret: bool = False,
-    col_off: int | None = None,
-):
-    """component_min_from_padded on the exact 2x-row-coarsened graph (see
-    the engine block comment) — bit-identical final labels, ~half the
-    per-round cost and fewer rounds on hole-laced fields.  Requires every
-    label < 2^24 (the packed-plane value width) and an even padded height;
-    callers gate on both and fall back to the fine tail otherwise."""
-    hp_src, wp = lab_pad.shape
-    h2 = hp_src - 2 * p
-    if h2 % 16:
-        raise ValueError(f"coarse tail needs h2 % 16 == 0 (got {h2})")
-    if col_off is None:
-        col_off = p
-    col_lo, col_hi = col_off, col_off + w - 1
-    hc = h2 // 2
-    tile = _tail_tile(hc)
-    # Multi-round engine (r12, default): the coarse plane carries an 8-row
-    # zero apron top and bottom so every band's halo DMA stays in bounds.
-    out_off = 8 if _COARSE_MULTI else 0
-
-    # coarsen: fine padded labels -> packed coarse plane.
-    gy = hc // tile
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=0,
-        grid=(gy,),
-        in_specs=[pl.BlockSpec(memory_space=pl.ANY)],
-        out_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((2, 2 * tile + 16, wp), jnp.int32),
-            pltpu.VMEM((tile, wp), jnp.int32),
-            pltpu.VMEM((1, wp), jnp.int32),
-            pltpu.VMEM((1, wp), jnp.int32),
-            pltpu.SemaphoreType.DMA((2, 2)),
-        ],
-    )
-    c0, _ = pl.pallas_call(
-        partial(
-            _coarsen_kernel, tile=tile, p=p, real_h=h,
-            col_lo=col_lo, col_hi=col_hi, out_off=out_off,
-        ),
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((hc + 2 * out_off, wp), jnp.int32),
-            jax.ShapeDtypeStruct((1, 1), jnp.int32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=112 * 1024 * 1024
-        ),
-        interpret=interpret,
-    )(lab_pad)
-
-    if _COARSE_MULTI:
-        # Multi-iteration fused rounds with alternating band order (see
-        # _cmulti_kernel) — the r12 engine: ~flat round counts in image
-        # size (Gauss-Seidel chaining) at one plane pass per round.
-        tile_m = _multi_tile(hc)
-
-        def mbody(state):
-            c, _, r = state
-            # Round 0 runs bottom-up with ONE full-width h sub-pass (long
-            # blob-field runs converge immediately); every later round
-            # alternates direction with windowed h only.
-            idx = jnp.where(
-                r == 0, 0, jnp.where(jax.lax.rem(r, 2) == 1, 1, 2)
-            )
-            c2, viol = jax.lax.switch(
-                idx,
-                [
-                    lambda q: _call_multi_kernel(
-                        q, tile=tile_m, k=_COARSE_K, up=True, full_h=True,
-                        h_window=_COARSE_HWIN, interpret=interpret,
-                    ),
-                    lambda q: _call_multi_kernel(
-                        q, tile=tile_m, k=_COARSE_K, up=False,
-                        h_window=_COARSE_HWIN, interpret=interpret,
-                    ),
-                    lambda q: _call_multi_kernel(
-                        q, tile=tile_m, k=_COARSE_K, up=True,
-                        h_window=_COARSE_HWIN, interpret=interpret,
-                    ),
-                ],
-                c,
-            )
-            return c2, viol, r + 1
-
-        cfin, _, _ = jax.lax.while_loop(
-            lambda s: s[1], mbody, (c0, jnp.bool_(True), jnp.int32(0))
-        )
-        return _coarse_broadcast(
-            cfin, lab_pad, hc=hc, wp=wp, tile=tile, p=p, h=h, w=w,
-            col_lo=col_lo, col_hi=col_hi, col_off=col_off, h2=h2,
-            row_off=out_off, interpret=interpret,
-        )
-
-    y0, _ = _call_round_kernel(
-        _cfwd_v_kernel, c0, tile=tile, interpret=interpret
-    )
-
-    # Windowed-h round schedule: rounds 0, 1 and every 4th run the
-    # full-width h-scans (long runs / blob regions), the rest bound the
-    # lane doubling at the window (short-run dot-laced regimes pay ~half
-    # the h steps).  Bit-identity is schedule-independent (violation
-    # stencil).  DEFAULT window 256 — hardware-measured >= the full-width
-    # schedule on every probed workload (r11: dots 4096² +4%, dots 8192²
-    # +7.7%, blobs 4096² +1.3%); RWT_COARSE_HWIN overrides ("0" disables) —
-    # parsed ONCE at import (_parse_coarse_hwin), since this line runs at
-    # trace time and a mid-session env change would otherwise be silently
-    # ignored until caches cleared.
-    h_window = _COARSE_HWIN
-
-    if h_window is None:
-
-        def body(state):
-            y, _ = state
-            out, viol = _call_round_kernel(
-                _cbwd_vh_kernel, y, tile=tile, interpret=interpret
-            )
-            y2 = jax.lax.cond(
-                viol,
-                lambda o: _call_round_kernel(
-                    _cfwd_v_kernel, o, tile=tile, interpret=interpret
-                )[0],
-                lambda o: o,
-                out,
-            )
-            return y2, viol
-
-        cfin, _ = jax.lax.while_loop(
-            lambda s: s[1], body, (y0, jnp.bool_(True))
-        )
-    else:
-
-        def body(state):
-            y, _, k = state
-            out, viol = jax.lax.cond(
-                (k < 2) | (jax.lax.rem(k, 4) == 3),
-                lambda yy: _call_round_kernel(
-                    _cbwd_vh_kernel, yy, tile=tile, interpret=interpret
-                ),
-                lambda yy: _call_round_kernel(
-                    _cbwd_vh_kernel, yy, tile=tile, interpret=interpret,
-                    h_window=h_window,
-                ),
-                y,
-            )
-            y2 = jax.lax.cond(
-                viol,
-                lambda o: _call_round_kernel(
-                    _cfwd_v_kernel, o, tile=tile, interpret=interpret
-                )[0],
-                lambda o: o,
-                out,
-            )
-            return y2, viol, k + 1
-
-        cfin, _, _ = jax.lax.while_loop(
-            lambda s: s[1], body, (y0, jnp.bool_(True), jnp.int32(0))
-        )
-
-    return _coarse_broadcast(
-        cfin, lab_pad, hc=hc, wp=wp, tile=tile, p=p, h=h, w=w,
-        col_lo=col_lo, col_hi=col_hi, col_off=col_off, h2=h2,
-        row_off=0, interpret=interpret,
-    )
-
-
-def _coarse_broadcast(
-    cfin, lab_pad, *, hc, wp, tile, p, h, w, col_lo, col_hi, col_off, h2,
-    row_off, interpret,
-):
-    """Expand the converged coarse plane back to fine geometry and crop
-    (shared by the legacy and multi-round drivers; ``row_off`` skips the
-    multi engine's 8-row apron)."""
-    gy = hc // tile
-    grid_spec_b = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=0,
-        grid=(gy,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=[pl.BlockSpec(memory_space=pl.ANY)],
-        scratch_shapes=[
-            pltpu.VMEM((2, tile, wp), jnp.int32),
-            pltpu.VMEM((2, 2 * tile, wp), jnp.int32),
-            pltpu.VMEM((2 * tile, wp), jnp.int32),
-            pltpu.SemaphoreType.DMA((2, 3)),
-        ],
-    )
-    fine = pl.pallas_call(
-        partial(
-            _broadcast_kernel, tile=tile, p=p, real_h=h,
-            col_lo=col_lo, col_hi=col_hi, row_off=row_off,
-        ),
-        grid_spec=grid_spec_b,
-        out_shape=[jax.ShapeDtypeStruct((h2, wp), jnp.int32)],
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=112 * 1024 * 1024
-        ),
-        interpret=interpret,
-    )(cfin, lab_pad)
-    return jax.lax.slice(fine[0], (0, col_off), (h, col_off + w))
+    return (out, n) if collect_rounds else out

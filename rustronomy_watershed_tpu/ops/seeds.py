@@ -18,7 +18,6 @@ Two entry points:
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 
 from .stencil import interior_mask, roll8
@@ -46,59 +45,15 @@ def local_extrema_mask(img: jnp.ndarray, mode: str = "reference") -> jnp.ndarray
     return ok & interior_mask(img.shape[-2:])
 
 
-_PB = 128  # prefix-sum block width (one MXU tile)
-
-
-def _tri_incl() -> jnp.ndarray:
-    r = jax.lax.broadcasted_iota(jnp.int32, (_PB, _PB), 0)
-    c = jax.lax.broadcasted_iota(jnp.int32, (_PB, _PB), 1)
-    return (r <= c).astype(jnp.float32)
-
-
-def _row_prefix_incl(x: jnp.ndarray) -> jnp.ndarray:
-    """Inclusive prefix sum along the last axis of a {0,1} array.
-
-    Blocked MXU prefix: per-128 block prefixes are one small matmul (f32 dots
-    of <= 128 ones — exact), block offsets a tiny int32 cumsum.  Integer-exact
-    for ANY image size (a single w-wide f32 dot loses exactness past 2^24)
-    and ~32x fewer FLOPs than a full (w, w) triangular matmul at 4096².
-    """
-    w = x.shape[-1]
-    wp = -(-w // _PB) * _PB
-    if wp != w:
-        pad = [(0, 0)] * (x.ndim - 1) + [(0, wp - w)]
-        x = jnp.pad(x, pad)
-    xb = x.reshape(x.shape[:-1] + (wp // _PB, _PB)).astype(jnp.float32)
-    # Precision.HIGHEST is load-bearing: TPU's DEFAULT matmul precision
-    # truncates f32 inputs to bf16, which is integer-exact only to 256 — the
-    # row-totals stage feeds values far beyond that (up to the image width),
-    # and the truncation silently corrupted seed numbering at >= 2048^2 on
-    # real TPU (caught by the fused Pallas pack kernel, ops/pallas_pack.py).
-    # {0,1} mask inputs would be exact at any precision; row totals are not.
-    local = jnp.dot(
-        xb,
-        _tri_incl(),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
-    ).astype(jnp.int32)
-    block_tot = local[..., -1]
-    block_off = jnp.cumsum(block_tot, axis=-1) - block_tot  # exclusive, int32
-    out = (local + block_off[..., None]).reshape(x.shape[:-1] + (wp,))
-    return out[..., :w]
-
-
 def seed_labels_from_mask(mask: jnp.ndarray) -> jnp.ndarray:
     """Label image with seeds numbered 1..K in row-major order, 0 elsewhere.
 
-    Prefix sums run on the MXU (scans serialise on TPU: hundreds of ms for a
-    4096² plane); see _row_prefix_incl for the blocked formulation.
+    One int32 cumulative sum over the flattened trailing (H, W) plane: exact
+    for any image below 2^31 pixels, with no floating point anywhere.
     """
     m = mask.astype(jnp.int32)
-    within = _row_prefix_incl(m)  # (.., h, w) per-row inclusive counts
-    row_tot = within[..., -1]
-    row_incl = _row_prefix_incl(row_tot)  # (.., h) inclusive over rows
-    row_off = row_incl - row_tot  # exclusive
-    ranks = within + row_off[..., None]
+    flat = m.reshape(m.shape[:-2] + (-1,))
+    ranks = jnp.cumsum(flat, axis=-1).reshape(m.shape)
     return jnp.where(mask, ranks, jnp.int32(0))
 
 

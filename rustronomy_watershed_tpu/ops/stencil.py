@@ -1,9 +1,9 @@
 """Shared 2-D stencil helpers for the watershed kernels.
 
 The reference crate iterates 3x3 ``ndarray`` windows with rayon
-(/root/reference/src/lib.rs:196-257, :393-445, :1178-1197).  On TPU the same
-neighbourhoods are expressed as whole-array shifted reads so XLA fuses each
-sweep into a single VPU pass; window *centres* are restricted to the interior
+(/root/reference/src/lib.rs:196-257, :393-445, :1178-1197).  On the device the
+same neighbourhoods are expressed as whole-array shifted reads so XLA fuses
+each sweep into a single elementwise pass; window *centres* are restricted to the interior
 (the 1-px border is never a centre) exactly like 3x3 windows are.
 """
 

@@ -1,14 +1,14 @@
-"""Halo exchange over the device mesh (ICI) for tiled stencil sweeps.
+"""Halo exchange over the device mesh for tiled stencil sweeps.
 
-The reference is single-address-space (rayon threads); the TPU rebuild tiles
+The reference is single-address-space (rayon threads); this rebuild tiles
 large mosaics over a 2-D ``jax.sharding.Mesh`` and exchanges k-px halos with
-``lax.ppermute`` (neighbour shifts over ICI) each flood block (SURVEY.md §2
-"Parallelism & communication").
+``lax.ppermute`` (neighbour shifts between devices) each flood block
+(SURVEY.md §2 "Parallelism & communication").
 
 Because one Jacobi sweep moves information exactly one 4-connected pixel, a
 k-px halo lets each device run k *local* sweeps per exchange with results
-bit-identical to k global sweeps — amortising ICI latency (SURVEY.md §7
-"Hard parts").  Corners ride along by exchanging rows first, then columns of
+bit-identical to k global sweeps — amortising the exchange latency
+(SURVEY.md §7 "Hard parts").  Corners ride along by exchanging rows first, then columns of
 the row-extended tile.
 """
 
@@ -68,66 +68,6 @@ def exchange_halo(
         from_left = jnp.where(ix > 0, from_left, fill)
         from_right = jnp.where(ix < nx - 1, from_right, fill)
     return jnp.concatenate([from_left, ext, from_right], axis=-1)
-
-
-def refresh_halo_padded(
-    plane: jnp.ndarray,
-    k: int,
-    h: int,
-    w: int,
-    axis_y: str,
-    axis_x: str,
-    off_grid_fill=0,
-    return_strips: bool = False,
-):
-    """Refresh the k-px halo band of a LANE-PADDED local plane in place.
-
-    ``plane`` is (..., h + 2k, wp >= w + 2k) with the tile's real data in
-    rows [k, k+h) x cols [k, k+w); only the halo band is rewritten
-    (dynamic_update_slice of thin strips), so a round loop can carry the
-    padded plane across kernel calls without the full-plane
-    re-pad/re-concat that ``exchange_halo`` implies — the kernel's
-    in-place aliasing then keeps per-round HBM traffic at strips + windows.
-
-    Strips are sourced from neighbours' CENTRE data only (never their halo
-    or lane-padding columns, which hold wrap-ghost corruption between
-    refreshes).  Rows first, then columns over the full padded height so
-    the fresh row-halos ride the column exchange — corners come along,
-    mirroring ``exchange_halo``'s composition.  Off-grid halos (mesh edge)
-    are overwritten with ``off_grid_fill`` every call, which also clears
-    any ghost corruption they accumulated during the preceding sweeps.
-
-    ``return_strips=True`` additionally returns the four incoming strips
-    (up, down, left, right) so a round loop can detect halo STABILITY by
-    comparing them with the previous round's strips — the basis of the
-    witness+halo-stability convergence protocol (parallel.tiled).
-    """
-    ny = lax.axis_size(axis_y)
-    nx = lax.axis_size(axis_x)
-    iy = lax.axis_index(axis_y)
-    ix = lax.axis_index(axis_x)
-    fill = jnp.asarray(off_grid_fill, dtype=plane.dtype)
-    lead = (0,) * (plane.ndim - 2)
-
-    # Row halos <- neighbours' first/last k CENTRE rows, centre cols.
-    from_up = _shift_from_prev(plane[..., h : h + k, k : k + w], axis_y, ny)
-    from_down = _shift_from_next(plane[..., k : 2 * k, k : k + w], axis_y, ny)
-    from_up = jnp.where(iy > 0, from_up, fill)
-    from_down = jnp.where(iy < ny - 1, from_down, fill)
-    plane = lax.dynamic_update_slice(plane, from_up, lead + (0, k))
-    plane = lax.dynamic_update_slice(plane, from_down, lead + (k + h, k))
-
-    # Column halos over the FULL padded height <- neighbours' first/last k
-    # centre cols (their just-refreshed row-halos carry the diagonal tiles).
-    from_left = _shift_from_prev(plane[..., :, w : w + k], axis_x, nx)
-    from_right = _shift_from_next(plane[..., :, k : 2 * k], axis_x, nx)
-    from_left = jnp.where(ix > 0, from_left, fill)
-    from_right = jnp.where(ix < nx - 1, from_right, fill)
-    plane = lax.dynamic_update_slice(plane, from_left, lead + (0, 0))
-    plane = lax.dynamic_update_slice(plane, from_right, lead + (0, k + w))
-    if return_strips:
-        return plane, (from_up, from_down, from_left, from_right)
-    return plane
 
 
 def global_interior_mask(

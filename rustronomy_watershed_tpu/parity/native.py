@@ -3,7 +3,7 @@
 The reference crate's native-performance story is rayon + jemalloc inside
 Rust; this framework's host-side native component is a small C++ engine with
 the exact reference semantics (pinned min-label tie-break), used to
-cross-check the TPU kernels at scale and as a CPU fallback.
+cross-check the device engines at scale and as a CPU fallback.
 """
 
 from __future__ import annotations

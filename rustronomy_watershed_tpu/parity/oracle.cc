@@ -3,7 +3,7 @@
 // Independent C++ implementation of the behaviour documented in SURVEY.md §3
 // (/root/reference/src/lib.rs:1328-1522) under the pinned deterministic
 // plateau tie-break (min coloured 4-neighbour label, SURVEY.md Q2/Q9).  Used
-// by the parity harness to cross-check the TPU kernels at sizes where the
+// by the parity harness to cross-check the device engines at sizes where the
 // NumPy oracle is too slow, and as a fast host fallback engine.
 //
 // Semantics:

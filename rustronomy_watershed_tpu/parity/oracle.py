@@ -4,7 +4,7 @@ This is a from-scratch, deliberately simple implementation of the behaviour
 documented in SURVEY.md §3 (call stack of transform_with_hook,
 /root/reference/src/lib.rs:1328-1522) under the pinned deterministic plateau
 tie-break (min coloured 4-neighbour label; SURVEY.md Q2/Q9).  It exists only
-to cross-check the TPU kernels — it shares no code with them (scalar/NumPy
+to cross-check the device engines — it shares no code with them (scalar/NumPy
 level loop here vs. lax loops + scatter union-find there).
 
 Semantics replicated:

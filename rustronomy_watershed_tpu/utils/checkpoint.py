@@ -5,7 +5,7 @@ reconstructible per level" via transform_history / per-level PNGs).  This
 rebuild makes that explicit: the level loop's carried state is exactly
 ``(water_level, labels)``, so a transform can be snapshotted every N levels
 (orbax) and resumed bit-exactly — useful for very large mosaics or preemptible
-TPU jobs.  Active on the host-stepped path via
+jobs.  Active on the host-stepped path via
 ``TransformBuilder.set_checkpoint(dir, every=N)``.
 """
 
@@ -45,15 +45,14 @@ class TransformCheckpointer:
 
     # -- relax fast-path plane snapshots (ops/ckpt_relax.py) ---------------
 
-    def save_planes(self, calls, key_pad, lab_pad, active, sat_bands, *, meta):
-        """Snapshot the relax engine's carried planes at a kernel-call
-        boundary.  Starts the device->host copies ASYNC first (they stream
-        while the device keeps computing), then hands the host arrays to
-        orbax's async save — the downlink overlaps compute on tunnelled
-        platforms (ops/ckpt_relax.py docstring)."""
+    def save_planes(self, calls, L, d, lab, *, meta):
+        """Snapshot the relax engine's (L, d, label) planes after a chunk
+        call.  The device->host copies start asynchronously first, then the
+        host arrays go to orbax's async save, so the transfer overlaps the
+        next chunk's compute."""
         import orbax.checkpoint as ocp
 
-        for a in (key_pad, lab_pad):
+        for a in (L, d, lab):
             try:
                 a.copy_to_host_async()
             except AttributeError:
@@ -63,12 +62,11 @@ class TransformCheckpointer:
             args=ocp.args.StandardSave(
                 {
                     # (no string "kind" marker — orbax StandardSave rejects
-                    # str leaves; latest_planes keys off "key_pad" instead)
+                    # str leaves; latest_planes keys off "lab" instead)
                     "calls": int(calls),
-                    "key_pad": np.asarray(key_pad),
-                    "lab_pad": np.asarray(lab_pad),
-                    "active": np.asarray(active),
-                    "sat_bands": np.asarray(sat_bands),
+                    "L": np.asarray(L),
+                    "d": np.asarray(d),
+                    "lab": np.asarray(lab),
                     "meta": [int(m) for m in meta],
                 }
             ),
@@ -82,7 +80,7 @@ class TransformCheckpointer:
         if step is None:
             return None
         state = self._mgr.restore(step)
-        if "key_pad" not in state:
+        if "lab" not in state:
             return None
         return state
 

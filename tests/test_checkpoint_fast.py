@@ -1,9 +1,9 @@
-"""Fast-path checkpoint / resume (ops/ckpt_relax.py, VERDICT r4 #3).
+"""Fast-path checkpoint / resume (ops/ckpt_relax.py).
 
-The relax engine's carried planes snapshot at kernel-call boundaries; a
-forced mid-transform interrupt (test_vmem_drift.py style) must resume from
-the snapshot BIT-EXACTLY — the fixed point is unique, so the resumed run's
-final labels equal the uninterrupted run's.
+The relax engine's (L, d, label) planes snapshot between chunks of sweeps;
+a forced mid-transform interrupt must resume from the snapshot BIT-EXACTLY —
+the fixed point is unique, so the resumed run's final labels equal the
+uninterrupted run's.
 """
 
 import numpy as np
@@ -20,7 +20,7 @@ pytest.importorskip("orbax.checkpoint")
 
 def _field(rng, shape=(64, 80)):
     img = rng.integers(0, 60, size=shape).astype(np.uint8)
-    img[rng.random(shape) < 0.1] = 255  # NaN lacing: several relax calls
+    img[rng.random(shape) < 0.1] = 255  # NaN lacing: long claim chains
     seeds = [(3, 3), (40, 70), (20, 40), (60, 10)]
     return img, paint_seeds(shape, seeds), len(seeds)
 
@@ -30,36 +30,33 @@ def test_interrupt_resume_bit_exact(rng, tmp_path, merging):
     img, lab0, k = _field(rng)
     want = np.asarray(
         run_levels(jnp.asarray(img), lab0, n_labels=k, max_water_level=254,
-                   merging=merging, backend="relax_pallas", interpret=True)
+                   merging=merging, backend="relax")
     )
 
-    # steps=8 on a 10%-laced field forces multiple relax calls so the
-    # interrupt genuinely lands mid-transform, after >= 1 snapshot.
+    # One sweep per chunk on a 10%-laced field: the interrupt genuinely
+    # lands mid-transform, after >= 1 snapshot.
     ckpt = TransformCheckpointer(tmp_path, every=1)
     with pytest.raises(RuntimeError, match="forced interrupt"):
         ckpt_transform(
-            jnp.asarray(img), lab0, merging=merging, n_labels=k,
-            checkpointer=ckpt, steps=8, interpret=True,
-            _interrupt_after_calls=1,
+            jnp.asarray(img), lab0, merging=merging, checkpointer=ckpt,
+            _interrupt_after_calls=3,
         )
     ckpt.wait()
     snap = ckpt.latest_planes()
-    assert snap is not None and snap["calls"] == 1
+    assert snap is not None and snap["calls"] == 3
 
-    # Resume from the snapshot; the final labels must equal the
-    # uninterrupted engine's bit-for-bit.
+    # Resume from the snapshot (with a different chunk length); the final
+    # labels must equal the uninterrupted engine's bit-for-bit.
     ckpt2 = TransformCheckpointer(tmp_path, every=1000)
-    got, starved = ckpt_transform(
-        jnp.asarray(img), lab0, merging=merging, n_labels=k,
-        checkpointer=ckpt2, steps=8, interpret=True,
+    got = ckpt_transform(
+        jnp.asarray(img), lab0, merging=merging, checkpointer=ckpt2,
     )
-    assert not bool(starved)
     np.testing.assert_array_equal(np.asarray(got), want)
 
 
 def test_public_builder_fast_checkpoint(rng, tmp_path):
-    """set_checkpoint composes with the relax_pallas fast path through the
-    public builder (no host-stepped loop), and stays bit-identical to the
+    """set_checkpoint composes with the relax fast path through the public
+    builder (no host-stepped loop), and stays bit-identical to the
     un-checkpointed transform."""
     from rustronomy_watershed_tpu.prelude import TransformBuilder
 
@@ -67,18 +64,11 @@ def test_public_builder_fast_checkpoint(rng, tmp_path):
     plain = TransformBuilder.default().build_merging()
     seeds = plain.find_local_minima(img)
     want = np.asarray(plain.transform(img, seeds))
-    # backend pinned: on CPU 'auto' resolves off relax_pallas, which routes
-    # checkpointing through the host-stepped per-level loop instead.
-    ws = (
-        TransformBuilder.default()
-        .set_backend("relax_pallas")
-        .set_checkpoint(tmp_path, every=1)
-        .build_merging()
-    )
-    ws._interpret = True  # Mosaic interpret mode (CPU test environment)
+    ws = TransformBuilder.default().set_checkpoint(tmp_path, every=1).build_merging()
+    assert ws._resolved_backend() == "relax"
     got = np.asarray(ws.transform(img, seeds))
     np.testing.assert_array_equal(got, want)
-    # the run left at least one plane snapshot behind
+    # the run left plane snapshots behind, not per-level ones
     assert TransformCheckpointer(tmp_path).latest_planes() is not None
 
 
@@ -91,18 +81,16 @@ def test_stale_snapshot_geometry_ignored(rng, tmp_path):
         3,
         np.zeros((10, 128), np.int32),
         np.zeros((10, 128), np.int32),
-        np.ones((1,), np.int32),
-        np.zeros((1,), np.int32),
-        meta=[1, 2, 3, 4],
+        np.zeros((10, 128), np.int32),
+        meta=[10, 128],
     )
     ckpt.wait()
-    got, _ = ckpt_transform(
-        jnp.asarray(img), lab0, merging=False, n_labels=k,
+    got = ckpt_transform(
+        jnp.asarray(img), lab0, merging=False,
         checkpointer=TransformCheckpointer(tmp_path, every=1000),
-        interpret=True,
     )
     want = np.asarray(
         run_levels(jnp.asarray(img), lab0, n_labels=k, max_water_level=254,
-                   merging=False, backend="relax_pallas", interpret=True)
+                   merging=False, backend="relax")
     )
     np.testing.assert_array_equal(np.asarray(got), want)

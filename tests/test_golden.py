@@ -46,9 +46,8 @@ def test_merging_sizes_match_golden(golden, field):
     seeds = [tuple(s) for s in golden[f"{field}/seeds"]]
     want = golden[f"{field}/merging/sizes"]
     lab0 = paint_seeds(img.shape, seeds)
-    _, sizes, _ = relax_merging_sizes(
+    _, sizes = relax_merging_sizes(
         jnp.asarray(img), lab0, n_labels=len(seeds), max_water_level=254,
-        backend="relax",
     )
     np.testing.assert_array_equal(np.asarray(sizes), want)
 

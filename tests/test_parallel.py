@@ -240,24 +240,25 @@ def test_tiled_history_merging_sweep(rng):
 
 
 @pytest.mark.parametrize("merging", [False, True])
-def test_tiled_relax_pallas_matches_single_device(rng, merging):
-    # The tiled Pallas packed-key engine (parallel/tiled.
-    # _local_relax_pallas_driver, interpret mode on the CPU mesh) must be
-    # bit-identical to the single-device driver.
+def test_tiled_relax_2x2_wide_halo_matches_oracle(rng, merging):
+    # The tiled relax engine on the 2x2 mesh with a halo as wide as half a
+    # tile (many sweeps per exchange) must equal the C++ oracle.
+    native = pytest.importorskip("rustronomy_watershed_tpu.parity.native")
     img, labels0, k = _case(rng)
-    want = np.asarray(
-        run_levels(jnp.asarray(img), labels0, n_labels=k,
-                   max_water_level=MAXLVL, merging=merging)
-    )
+    seeds = [tuple(int(v) for v in c) for c in np.argwhere(np.asarray(labels0))]
+    order = np.asarray(labels0)[tuple(np.asarray(seeds).T)]
+    seeds = [seeds[i] for i in np.argsort(order)]
+    want = native.native_transform(img, seeds, MAXLVL, merging=merging)
+    mesh22 = Mesh(np.asarray(jax.devices()[:4]).reshape(2, 2), ("y", "x"))
     got = np.asarray(
-        tiled_transform(img, labels0, make_mesh(8), n_labels=k,
+        tiled_transform(img, labels0, mesh22, n_labels=k,
                         max_water_level=MAXLVL, merging=merging, halo=8,
-                        backend="relax_pallas")
+                        backend="relax")
     )
     np.testing.assert_array_equal(got, want)
 
 
-def test_tiled_relax_pallas_sizes_history_and_batch(rng):
+def test_tiled_relax_sizes_history_and_batch_2x2(rng):
     img, labels0, k = _case(rng)
     want_lab, want_sz = run_levels(
         jnp.asarray(img), labels0, n_labels=k, max_water_level=MAXLVL,
@@ -265,7 +266,7 @@ def test_tiled_relax_pallas_sizes_history_and_batch(rng):
     )
     lab, sz = tiled_transform(img, labels0, make_mesh(8), n_labels=k,
                               max_water_level=MAXLVL, merging=False, halo=8,
-                              collect="sizes", backend="relax_pallas")
+                              collect="sizes", backend="relax")
     np.testing.assert_array_equal(np.asarray(lab), np.asarray(want_lab))
     np.testing.assert_array_equal(np.asarray(sz), np.asarray(want_sz))
 
@@ -276,10 +277,10 @@ def test_tiled_relax_pallas_sizes_history_and_batch(rng):
     mesh22 = Mesh(np.asarray(jax.devices()[:4]).reshape(2, 2), ("y", "x"))
     _, hist = tiled_transform(img, labels0, mesh22, n_labels=k,
                               max_water_level=MAXLVL, merging=False, halo=8,
-                              collect="history", backend="relax_pallas")
+                              collect="history", backend="relax")
     np.testing.assert_array_equal(np.asarray(hist), np.asarray(want_hist))
 
-    # batch(dp) x spatial mesh, per-batch sequential kernel calls
+    # batch(dp) x spatial mesh
     imgs = rng.integers(0, MAXLVL + 2, size=(4, 16, 16)).astype(np.uint8)
     seeds = [(3, 3), (12, 12), (8, 4)]
     lab0 = np.stack([np.asarray(paint_seeds((16, 16), seeds))] * 4)
@@ -287,7 +288,7 @@ def test_tiled_relax_pallas_sizes_history_and_batch(rng):
     got = np.asarray(
         tiled_transform(imgs, lab0, bmesh, n_labels=3, max_water_level=MAXLVL,
                         merging=True, halo=8, axis_batch="batch",
-                        backend="relax_pallas")
+                        backend="relax")
     )
     for i in range(4):
         want = np.asarray(
@@ -297,18 +298,19 @@ def test_tiled_relax_pallas_sizes_history_and_batch(rng):
         np.testing.assert_array_equal(got[i], want, err_msg=f"batch {i}")
 
 
-def test_tiled_relax_pallas_geometry_raises(rng):
-    # 2x4 mesh on 16-wide image -> 4-px tiles: too narrow for an 8-px halo.
+@pytest.mark.parametrize("backend", ["relax_pallas", "pallas"])
+def test_tiled_removed_backend_raises(rng, backend):
+    # Engines this package no longer has are refused by name, never run.
     img = rng.integers(0, 5, size=(16, 16)).astype(np.uint8)
     labels0 = paint_seeds((16, 16), [(3, 3), (12, 12)])
-    with pytest.raises(ValueError, match="relax_pallas"):
+    with pytest.raises(ValueError, match="accepted"):
         tiled_transform(img, labels0, make_mesh(8), n_labels=2,
-                        max_water_level=3, backend="relax_pallas")
+                        max_water_level=3, backend=backend)
 
 
 @pytest.mark.parametrize("trial", range(4))
-def test_tiled_relax_pallas_randomised(trial):
-    # Randomised differential: the tiled Pallas engine vs the single-device
+def test_tiled_relax_randomised(trial):
+    # Randomised differential: the tiled relax engine vs the single-device
     # driver on random shapes/meshes/ranges (sentinels sprinkled in).
     rng = np.random.default_rng(7000 + trial)
     ny, nx = [(2, 2), (2, 4), (1, 4), (4, 2)][trial]
@@ -333,7 +335,7 @@ def test_tiled_relax_pallas_randomised(trial):
     got = np.asarray(
         tiled_transform(img, lab0, mesh, n_labels=len(seeds),
                         max_water_level=maxlvl, merging=merging, halo=8,
-                        backend="relax_pallas")
+                        backend="relax")
     )
     np.testing.assert_array_equal(
         got, want,
@@ -365,18 +367,17 @@ def test_transform_batch_merging_border_seeds(rng):
         np.testing.assert_array_equal(batched[i], single, err_msg=f"img{i}")
 
 
-def test_auto_backend_never_picks_pallas_for_narrow_tiles():
-    """'auto' must include the halo<=tile-width constraint in its eligibility
-    test (advisor finding: it used to pick relax_pallas for w_local < halo on
-    TPU meshes and then raise)."""
+def test_auto_backend_resolution():
+    """Tiled 'auto': the relax engine wherever it applies, the per-level
+    sweep only for merging statistics — decided by the call, not the
+    platform or the tile geometry."""
     from rustronomy_watershed_tpu.parallel.tiled import _auto_backend
 
-    assert _auto_backend(True, False, "none", 64, 4, 8) == "relax"  # w < halo
-    assert _auto_backend(True, False, "none", 64, 128, 8) == "relax_pallas"
-    assert _auto_backend(False, False, "none", 64, 128, 8) == "relax"
-    assert _auto_backend(True, True, "sizes", 64, 128, 8) == "sweep"
-    # h too small for any band tile >= halo -> jnp engine, never a raise.
-    assert _auto_backend(True, False, "none", 4, 128, 8) == "relax"
+    for collect in ("none", "sizes", "history", "claims"):
+        assert _auto_backend(False, collect) == "relax"
+    assert _auto_backend(True, "none") == "relax"
+    assert _auto_backend(True, "sizes") == "sweep"
+    assert _auto_backend(True, "history") == "sweep"
 
 
 @pytest.mark.parametrize("merging", [False, True])
@@ -658,57 +659,9 @@ def test_mesh_merging_to_list_differential(rng, trial):
         np.testing.assert_array_equal(cg, cw, err_msg=f"trial {trial} lvl {lw}")
 
 
-def test_refresh_halo_padded_matches_exchange_halo(rng):
-    """refresh_halo_padded on a lane-padded plane must leave the (h+2k, w+2k)
-    halo-extended region identical to exchange_halo of the centre tile —
-    the equivalence the strip-refresh round loop (tiled relax_pallas)
-    relies on — and the returned strips must equal what it wrote."""
-    from functools import partial
-
-    from jax.experimental.shard_map import shard_map
-    from jax.sharding import PartitionSpec as P
-
-    from rustronomy_watershed_tpu.parallel.halo import (
-        exchange_halo,
-        refresh_halo_padded,
-    )
-
-    k, h, w, wp = 4, 16, 24, 64  # lane-padded width > w + 2k
-    ny, nx = 2, 2
-    devs = np.asarray(jax.devices()[: ny * nx]).reshape(ny, nx)
-    mesh = Mesh(devs, ("y", "x"))
-    tiles = rng.integers(0, 1 << 20, size=(ny * h, nx * w)).astype(np.int32)
-
-    def local(tile):
-        # stale-garbage padded plane: halo/padding filled with junk that the
-        # refresh must fully overwrite in the halo band
-        plane = jnp.full((h + 2 * k, wp), jnp.int32(-7))
-        plane = jax.lax.dynamic_update_slice(plane, tile, (k, k))
-        plane, strips = refresh_halo_padded(
-            plane, k, h, w, "y", "x", off_grid_fill=99, return_strips=True
-        )
-        want = exchange_halo(tile, k, "y", "x", off_grid_fill=99)
-        ok_region = jnp.all(plane[:, : w + 2 * k] == want)
-        ok_strips = (
-            jnp.all(strips[0] == want[:k, k : k + w])
-            & jnp.all(strips[1] == want[k + h :, k : k + w])
-            & jnp.all(strips[2] == want[:, :k])
-            & jnp.all(strips[3] == want[:, k + w :])
-        )
-        # lane padding beyond w+2k stays untouched
-        ok_pad = jnp.all(plane[:, w + 2 * k :] == jnp.int32(-7))
-        return (ok_region & ok_strips & ok_pad)[None]
-
-    oks = shard_map(
-        local, mesh=mesh, in_specs=P("y", "x"), out_specs=P(("y", "x")),
-    )(jnp.asarray(tiles))
-    assert np.asarray(oks).all()
-
-
 def test_with_stats_rounds_and_parity(rng):
-    """tiled_transform(with_stats=True) returns the replicated
-    [rounds, tile runs] vector (the mesh scaling study's instrumentation)
-    without perturbing the labels."""
+    """tiled_transform(with_stats=True) returns the replicated exchange-round
+    count without perturbing the labels; other engines refuse it."""
     img = rng.integers(0, 40, size=(64, 64)).astype(np.uint8)
     from rustronomy_watershed_tpu.ops.seeds import (
         local_extrema_mask,
@@ -718,35 +671,28 @@ def test_with_stats_rounds_and_parity(rng):
     lab0 = seed_labels_from_mask(local_extrema_mask(jnp.asarray(img)))
     k = int(np.asarray(lab0).max())
     mesh = Mesh(np.asarray(jax.devices()[:4]).reshape(2, 2), ("y", "x"))
-    out, stats = tiled_transform(
+    out, rounds = tiled_transform(
         img, lab0, mesh, n_labels=k, max_water_level=254,
-        backend="relax_pallas", halo=8, with_stats=True,
+        backend="relax", halo=8, with_stats=True,
     )
-    stats = np.asarray(stats)
-    assert stats.shape == (2,)
-    rounds, runs = int(stats[0]), int(stats[1])
-    assert rounds >= 1
-    # every round runs at most 4 tiles; at least the first round runs all 4
-    assert 4 <= runs <= 4 * rounds
+    assert np.asarray(rounds).shape == () and int(rounds) >= 2
     want = tiled_transform(
-        img, lab0, mesh, n_labels=k, max_water_level=254,
-        backend="relax_pallas", halo=8,
+        img, lab0, mesh, n_labels=k, max_water_level=254, backend="relax", halo=8,
     )
     np.testing.assert_array_equal(np.asarray(out), np.asarray(want))
     with pytest.raises(ValueError):
         tiled_transform(
             img, lab0, mesh, n_labels=k, max_water_level=254,
-            backend="relax", with_stats=True,
+            backend="sweep", with_stats=True,
         )
 
 
-def test_tuned_halo_one_extra_round_invariant(rng):
-    """Regression pin of the r7 scaling-study invariant (BENCHMARKS.md r7,
-    tools/mesh_scaling.py): with the TUNED halo (halo=None), every mesh
-    shape converges in exactly ONE exchange round more than the 1x1 mesh —
-    a future halo/convergence-protocol change that silently adds rounds
-    fails here.  Labels stay bit-identical across shapes."""
-    img = rng.integers(0, 254, size=(128, 128)).astype(np.uint8)
+@pytest.mark.parametrize("halo", [None, 4])
+def test_exchange_rounds_equal_across_mesh_shapes(rng, halo):
+    """k local relax sweeps on a k-px halo are k global sweeps, so every
+    mesh shape runs exactly as many exchange rounds as the 1x1 mesh (at the
+    default halo and a narrow one), with bit-identical labels."""
+    img = rng.integers(0, 254, size=(64, 64)).astype(np.uint8)
     from rustronomy_watershed_tpu.ops.seeds import (
         local_extrema_mask,
         seed_labels_from_mask,
@@ -758,14 +704,14 @@ def test_tuned_halo_one_extra_round_invariant(rng):
 
     def rounds_for(ny, nx):
         mesh = Mesh(np.asarray(devs[: ny * nx]).reshape(ny, nx), ("y", "x"))
-        out, stats = tiled_transform(
+        out, rounds = tiled_transform(
             img, lab0, mesh, n_labels=k, max_water_level=254,
-            backend="relax_pallas", halo=None, with_stats=True,
+            backend="relax", halo=halo, with_stats=True,
         )
-        return np.asarray(out), int(np.asarray(stats)[0])
+        return np.asarray(out), int(rounds)
 
     ref, r11 = rounds_for(1, 1)
-    for ny, nx in ((1, 2), (2, 2), (4, 2)):
+    for ny, nx in ((1, 2), (2, 2), (2, 4)):
         out, r = rounds_for(ny, nx)
         np.testing.assert_array_equal(out, ref)
-        assert r == r11 + 1, (ny, nx, r, r11)
+        assert r == r11, (ny, nx, r, r11)

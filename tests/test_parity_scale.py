@@ -84,15 +84,23 @@ def test_max_water_level_hit_mid_flood_512(merging):
 
 
 @pytest.mark.parametrize("merging", [False, True])
-@pytest.mark.parametrize("backend", ["jnp", "pallas", "relax_pallas"])
+@pytest.mark.parametrize("backend", ["jnp", "relax", "public"])
 def test_all_backends_vs_oracle_256(merging, backend):
-    # Every backend at full depth on a plateau-heavy 256² field (the pallas
-    # kernels run in interpret mode on CPU, so the size is kept moderate).
+    # Every engine at full depth on a plateau-heavy 256² field, plus the
+    # public builder path (auto engine).
     img = _grf_quantised((256, 256), 12, seed=11)
     seeds = native.native_find_local_minima(img)
     want = native.native_transform(img, seeds, 254, merging=merging)
-    got = _device(img, seeds, 254, merging, backend,
-                  interpret=backend.endswith("pallas"))
+    if backend == "public":
+        from rustronomy_watershed_tpu import TransformBuilder
+
+        ws = getattr(
+            TransformBuilder.default(),
+            "build_merging" if merging else "build_segmenting",
+        )()
+        got = ws.transform(img, seeds)
+    else:
+        got = _device(img, seeds, 254, merging, backend)
     np.testing.assert_array_equal(got, want)
 
 
@@ -105,9 +113,8 @@ def test_merging_transform_to_list_vs_oracle_512():
         img, seeds, 254, merging=True, with_sizes=True
     )
     lab0 = paint_seeds(img.shape, seeds)
-    final, sizes, _ = relax_merging_sizes(
+    final, sizes = relax_merging_sizes(
         jnp.asarray(img), lab0, n_labels=len(seeds), max_water_level=254,
-        backend="relax",
     )
     np.testing.assert_array_equal(np.asarray(sizes), want_sizes)
     want_lab = native.native_transform(img, seeds, 254, merging=True)

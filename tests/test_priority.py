@@ -119,26 +119,24 @@ def test_relax_backend_via_run_levels_and_model(rng):
 
 
 @pytest.mark.parametrize("shape,hi,maxlvl", [((40, 52), 20, 18), ((24, 24), 4, 3)])
-def test_relax_pallas_matches_jnp_relax(rng, shape, hi, maxlvl):
-    from rustronomy_watershed_tpu.ops.pallas_relax import relax_transform_pallas
-
+def test_relax_claim_levels_match_oracle(rng, shape, hi, maxlvl):
+    """Labels equal the C++ oracle, and the claim level L(p) is exactly the
+    first water level at which the oracle colours p (the key the per-level
+    statistics are built from)."""
+    native = pytest.importorskip("rustronomy_watershed_tpu.parity.native")
     img = rng.integers(0, hi, size=shape).astype(np.uint8)
     seeds = _seeds_of(img) or [(2, 2)]
     lab0 = paint_seeds(shape, seeds)
-    want_lab, want_L = relax_transform(jnp.asarray(img), lab0, max_water_level=maxlvl)
-    got_lab, got_L, _ = relax_transform_pallas(
-        jnp.asarray(img), lab0, max_water_level=maxlvl, tile=8, steps=8, interpret=True
-    )
-    np.testing.assert_array_equal(np.asarray(got_lab), np.asarray(want_lab))
-    # claim levels agree wherever a pixel was legitimately claimed
-    claimed = np.asarray(want_L) <= 255
-    np.testing.assert_array_equal(
-        np.asarray(got_L)[claimed & (np.asarray(want_L) <= maxlvl)],
-        np.asarray(want_L)[claimed & (np.asarray(want_L) <= maxlvl)],
-    )
+    got_lab, got_L = relax_transform(jnp.asarray(img), lab0, max_water_level=maxlvl)
+    want = native.native_transform(img, seeds, maxlvl, merging=False)
+    np.testing.assert_array_equal(np.asarray(got_lab), want)
+    got_L = np.asarray(got_L)
+    for lvl in range(1, maxlvl + 1):
+        at = native.native_transform(img, seeds, lvl, merging=False)
+        np.testing.assert_array_equal(at != 0, got_L <= lvl, err_msg=f"lvl={lvl}")
 
 
-def test_relax_pallas_backend_through_run_levels(rng):
+def test_relax_sizes_through_run_levels(rng):
     img = rng.integers(0, 10, size=(30, 34)).astype(np.uint8)
     seeds = [(3, 3), (20, 28), (15, 9)]
     lab0 = paint_seeds(img.shape, seeds)
@@ -147,7 +145,7 @@ def test_relax_pallas_backend_through_run_levels(rng):
     )
     got, sizes = run_levels(
         jnp.asarray(img), lab0, n_labels=3, max_water_level=9, merging=False,
-        backend="relax_pallas", tile=8, steps=8, interpret=True, collect="sizes",
+        backend="relax", collect="sizes",
     )
     np.testing.assert_array_equal(np.asarray(got), want)
     _, want_sizes = run_levels(
@@ -157,29 +155,30 @@ def test_relax_pallas_backend_through_run_levels(rng):
     np.testing.assert_array_equal(np.asarray(sizes), np.asarray(want_sizes))
 
 
-@pytest.mark.parametrize("backend_kwargs", [
-    dict(backend="relax"),
-    dict(backend="relax_pallas", tile=8, steps=8, interpret=True),
-])
-def test_merging_via_relax_matches_level_sweep(rng, backend_kwargs):
+@pytest.mark.parametrize("oracle", ["level_sweep", "native"])
+def test_merging_via_relax_matches_level_sweep(rng, oracle):
     img = rng.integers(0, 12, size=(24, 24)).astype(np.uint8)
     seeds = _seeds_of(img) or [(2, 2)]
     lab0 = paint_seeds(img.shape, seeds)
-    want = np.asarray(
-        run_levels(jnp.asarray(img), lab0, n_labels=len(seeds),
-                   max_water_level=10, merging=True)
-    )
+    if oracle == "native":
+        native = pytest.importorskip("rustronomy_watershed_tpu.parity.native")
+        want = native.native_transform(img, seeds, 10, merging=True)
+    else:
+        want = np.asarray(
+            run_levels(jnp.asarray(img), lab0, n_labels=len(seeds),
+                       max_water_level=10, merging=True)
+        )
     got = np.asarray(
         run_levels(jnp.asarray(img), lab0, n_labels=len(seeds),
-                   max_water_level=10, merging=True, **backend_kwargs)
+                   max_water_level=10, merging=True, backend="relax")
     )
     np.testing.assert_array_equal(got, want)
 
 
 def test_merging_relax_per_level_collect_falls_back_to_sweep(rng):
-    """Direct run_levels callers asking the relax backends for per-level
-    merged statistics get the level-sweep engine (r1 VERDICT weak #4: raising
-    where a bit-identical fallback exists is unkind), pinned here."""
+    """Direct run_levels callers asking the relax backend for per-level
+    merged statistics get the level-sweep engine (raising where a
+    bit-identical fallback exists is unkind), pinned here."""
     img = rng.integers(0, 8, size=(16, 16)).astype(np.uint8)
     seeds = [(3, 3), (12, 12), (4, 11)]
     lab0 = paint_seeds(img.shape, seeds)
@@ -187,204 +186,9 @@ def test_merging_relax_per_level_collect_falls_back_to_sweep(rng):
         jnp.asarray(img), lab0, n_labels=3, max_water_level=5,
         merging=True, backend="jnp", collect="sizes",
     )
-    for backend in ("relax", "relax_pallas"):
-        lab, sizes = run_levels(
-            jnp.asarray(img), lab0, n_labels=3, max_water_level=5,
-            merging=True, backend=backend, collect="sizes", interpret=True,
-        )
-        np.testing.assert_array_equal(np.asarray(lab), np.asarray(want_lab))
-        np.testing.assert_array_equal(np.asarray(sizes), np.asarray(want_sizes))
-
-
-def test_relax_pallas_d_field_saturates_instead_of_carrying():
-    """A claim chain whose ring index d has hit the 23-bit field maximum must
-    pin at (L, 2^23-1) — NOT carry into the level field as a spurious (L+1, 0)
-    claim (advisor finding: serpentine plateaus can reach d ~ plateau AREA,
-    so the field can really saturate from 2897^2-px images up)."""
-    import jax.numpy as jnp
-
-    from rustronomy_watershed_tpu.constants import NEVER_FILL
-    from rustronomy_watershed_tpu.ops.pallas_relax import (
-        _D_BITS,
-        _D_MASK,
-        _UNCLAIMED,
-        relax_block,
-    )
-
-    tile = steps = 8
-    hp, wp = tile + 2 * steps, 128
-    lvl = 5
-    v = np.full((hp, wp), NEVER_FILL, np.int32)
-    v[steps : steps + tile, 8:16] = lvl  # small flat plateau at level 5
-    v_pad = jnp.asarray((v - 128).astype(np.int8))
-
-    key = np.full((hp, wp), _UNCLAIMED, np.int32)
-    lab = np.zeros((hp, wp), np.int32)
-    key[10, 10] = (lvl << _D_BITS) | _D_MASK  # claimed, d at field max
-    lab[10, 10] = 7
-
-    key2, lab2, _, _, sat = relax_block(
-        jnp.asarray(v_pad), jnp.asarray(key), jnp.asarray(lab),
-        jnp.ones((1,), jnp.int32), tile=tile, steps=steps, interpret=True,
-    )
-    key2 = np.asarray(key2)
-    claimed = key2 != _UNCLAIMED
-    assert claimed[10, 11] and claimed[12, 12]  # saturated key still spreads
-    levels = key2[claimed] >> _D_BITS
-    assert (levels == lvl).all(), f"level field corrupted: {set(levels)}"
-    assert (key2[claimed] & _D_MASK == _D_MASK).all()  # pinned at d max
-    # ... and the in-kernel starvation detector fires: the saturated spread
-    # claims pixels whose labels can never arrive (equal keys cannot donate).
-    assert int(np.asarray(sat)[0]) == 1
-
-
-def test_tune_relax_steps_resolution(monkeypatch):
-    from rustronomy_watershed_tpu.ops.tune import relax_steps
-
-    assert relax_steps(4096) == 32
-    assert relax_steps(4097) == 32   # next bucket (8192)
-    assert relax_steps(1024) == 24   # r6: shorter chains, slimmer halo
-    assert relax_steps(100) == 24    # below the table -> nearest bucket
-    assert relax_steps(1 << 20) == 32  # above the table -> nearest bucket
-    monkeypatch.setenv("RWT_RELAX_STEPS", "20")
-    assert relax_steps(4096) == 24   # env override, rounded UP to 8-mult
-    monkeypatch.setenv("RWT_RELAX_STEPS", "4")
-    assert relax_steps(4096) == 8    # floor at the DMA granularity
-
-
-def test_merging_per_level_collect_fallback_with_image_seeds(rng):
-    """labels0=None (seeds-from-image) + merging + per-level collect: the
-    sweep fallback derives the same row-major seed numbering the fused pack
-    kernel would (r4 review finding: this combo used to crash opaquely)."""
-    import jax.numpy as jnp
-
-    from rustronomy_watershed_tpu.ops.seeds import (
-        local_extrema_mask,
-        seed_labels_from_mask,
-    )
-
-    img = rng.integers(0, 9, size=(20, 20)).astype(np.uint8)
-    lab0 = seed_labels_from_mask(local_extrema_mask(jnp.asarray(img)))
-    k = int(np.asarray(lab0).max())
-    want_lab, want_sizes = run_levels(
-        jnp.asarray(img), lab0, n_labels=k, max_water_level=6,
-        merging=True, backend="jnp", collect="sizes",
-    )
     lab, sizes = run_levels(
-        jnp.asarray(img), None, n_labels=k, max_water_level=6,
-        merging=True, backend="relax_pallas", collect="sizes", interpret=True,
+        jnp.asarray(img), lab0, n_labels=3, max_water_level=5,
+        merging=True, backend="relax", collect="sizes",
     )
     np.testing.assert_array_equal(np.asarray(lab), np.asarray(want_lab))
     np.testing.assert_array_equal(np.asarray(sizes), np.asarray(want_sizes))
-
-
-def test_tune_relax_tile_resolution(monkeypatch):
-    from rustronomy_watershed_tpu.ops.pallas_relax import auto_tile
-    from rustronomy_watershed_tpu.ops.tune import relax_tile
-
-    assert relax_tile(4096, 32) == 320   # measured config (r6 sweep)
-    assert relax_tile(4096, 16) is None  # steps mismatch -> auto_tile bound
-    assert relax_tile(4000, 32) is None  # non-bucket width -> auto_tile bound
-    # measured tiles must respect the pipelined-write constraint
-    from rustronomy_watershed_tpu.ops.tune import (
-        RELAX_STEPS_TABLE,
-        RELAX_TILE_TABLE,
-    )
-    from rustronomy_watershed_tpu.ops.pallas_relax import (
-        VMEM_LIMIT_BYTES,
-        vmem_model_bytes,
-    )
-
-    for w, t in RELAX_TILE_TABLE.items():
-        s = RELAX_STEPS_TABLE[w]
-        assert t >= s and t % 8 == 0
-        # Measured entries are validated against the un-slacked VMEM model
-        # (they sit within the fallback bound's safety slack of the limit,
-        # verified to compile and run on hardware).  They may legitimately
-        # exceed the generic DEFAULT_TILE cap (r6 tall-tile sweep), so the
-        # fallback comparison lifts the cap.
-        assert vmem_model_bytes(w, s, t) <= VMEM_LIMIT_BYTES
-        assert t <= auto_tile(w, s, cap=1 << 20) + 8
-    monkeypatch.setenv("RWT_RELAX_STEPS", "16")
-    assert relax_tile(4096, 16) is None  # manual sweeps bypass the table
-
-
-def test_fused_scan_tile_cap():
-    """The merging path's fwd-scan epilogue adds VMEM scratch the
-    segmenting-measured tile table does not budget for: at 8192²/steps=32
-    the table tile (128) compiled for segmenting but OOM'd the 112 MB
-    scoped-vmem limit with the epilogue (113.0 MB, measured on v5e).  The
-    fused path must cap by its own bound."""
-    from rustronomy_watershed_tpu.ops.pallas_relax import auto_tile
-    from rustronomy_watershed_tpu.ops.tune import (
-        RELAX_STEPS_TABLE,
-        RELAX_TILE_TABLE,
-    )
-
-    for w, t in RELAX_TILE_TABLE.items():
-        s = RELAX_STEPS_TABLE[w]
-        fused = auto_tile(w, s, fused_scan=True)
-        assert fused <= auto_tile(w, s)
-        assert min(t, fused) >= s  # pipelined-write constraint survives
-    assert auto_tile(8192, 32, fused_scan=True) < RELAX_TILE_TABLE[8192]
-
-
-def test_resolution_contracts(monkeypatch):
-    """Config-resolution contracts of resolve_relax_config (r6 review):
-    (a) an explicit steps kwarg must NOT pick up a table tile measured at
-    other steps (steps-mismatch -> steps-matched auto tile);
-    (b) an RWT_RELAX_TILE override is honoured VERBATIM — no fused cap,
-    height clamp, or VMEM-model shrink (sweeps measure what they name);
-    (c) a tall domain (area > 2·w²) bumps resolved steps to >= 32 but keeps
-    the width bucket's measured tile (re-validated against the VMEM
-    model at the effective steps)."""
-    from rustronomy_watershed_tpu.ops.pallas_relax import resolve_relax_config
-
-    # (a) explicit steps=8 at a table width: table (1024 -> tile 1024 @
-    # steps 24) must not apply; the steps-matched auto tile is then
-    # height-clamped to the 64-row image.
-    assert resolve_relax_config(64, 1024, steps=8) == (8, 64)
-    assert resolve_relax_config(4096, 4096, steps=16) == (16, 256)
-    # (b) env tile override is used verbatim (no height clamp to 64, no
-    # VMEM shrink even for tiles the model would reject).
-    monkeypatch.setenv("RWT_RELAX_TILE", "96")
-    assert resolve_relax_config(64, 1024, steps=8) == (8, 96)
-    monkeypatch.setenv("RWT_RELAX_TILE", "160")
-    monkeypatch.setenv("RWT_RELAX_STEPS", "32")
-    assert resolve_relax_config(8192, 8192) == (32, 160)  # hardware-proven
-    monkeypatch.delenv("RWT_RELAX_TILE")
-    monkeypatch.delenv("RWT_RELAX_STEPS")
-    # (c) tall stack / mosaic: steps bumped, measured width tile kept.
-    assert resolve_relax_config(64 * 1026, 1024) == (32, 1024)
-    assert resolve_relax_config(4096, 1024) == (32, 1024)
-    # square table widths resolve to their measured configs
-    assert resolve_relax_config(1024, 1024) == (24, 1024)
-    # r7: 152 transiently OOM'd under platform compiler drift, restored
-    # after the VMEM ceiling raise to 125 MiB (ops/tune.py table note).
-    assert resolve_relax_config(8192, 8192) == (32, 152)
-    assert resolve_relax_config(8192, 8192, fwd_scan=True) == (32, 144)
-    # The stats-only epilogue (fwd_scan='stats', the production merging
-    # path since r4/VERDICT #1) has the segmenting footprint: no fused cap
-    # — the 8192 table tile returns to 152.
-    assert resolve_relax_config(8192, 8192, fwd_scan="stats") == (32, 152)
-
-
-def test_tall_table_tile_clamped_by_image_height():
-    """The tile table is keyed by WIDTH; a tall measured tile (1024-wide
-    whole-image band) must never inflate a SHORTER image's padded height —
-    relax_packed_planes clamps to roundup(H, 8) (floor: steps)."""
-    import numpy as np
-
-    from rustronomy_watershed_tpu.ops.pallas_relax import relax_packed_planes
-    from rustronomy_watershed_tpu.ops.tune import relax_steps, relax_tile
-
-    s = relax_steps(1024)
-    assert relax_tile(1024, s) == 1024  # the tall measured entry
-    img = np.random.default_rng(0).integers(0, 255, (256, 1024)).astype(np.uint8)
-    lab0 = np.zeros((256, 1024), np.int32)
-    lab0[5, 7] = 1
-    key, lab, p, _col_off, tile, _ = relax_packed_planes(
-        img, lab0, interpret=True
-    )
-    assert tile == 256  # clamped to the image height, not the table's 1024
-    assert key.shape[0] == 256 + 2 * p  # h2 == h — no row inflation

@@ -3,8 +3,8 @@ round-6 120-trial ad-hoc soak — VERDICT r2 #8).
 
 Coverage the fixed-fixture tests miss: randomized CONTENT on a pool of
 extreme geometries (tall/thin, short/wide, square), sentinel-laced and
-NaN/inf-preprocessed fields, both variants, all three jnp-side engines plus
-the Mosaic kernel in interpret mode.  The shape pool is FIXED so jit
+NaN/inf-preprocessed fields, both variants, both device engines, and on a
+rotating subset the public builder path.  The shape pool is FIXED so jit
 compile caches hit across trials and the whole soak stays fast; content,
 dynamic range, variant, and sentinel density are drawn per-trial from a
 pinned seed.  Reference semantics per /root/reference/src/lib.rs:196-635;
@@ -21,10 +21,9 @@ from rustronomy_watershed_tpu.ops import paint_seeds, run_levels
 
 native = pytest.importorskip("rustronomy_watershed_tpu.parity.native")
 
-# Fixed geometry pool: tall/thin (width-keyed schedule + large-area steps
-# bump), short/wide (height clamp of width-keyed tall tiles), square, and a
-# wider-than-1024-bucket sliver.  Content varies per trial; shapes do not,
-# so each (shape, variant, backend) compiles once for the whole soak.
+# Fixed geometry pool: tall/thin, short/wide, square, and a wide sliver.
+# Content varies per trial; shapes do not, so each (shape, variant,
+# backend) compiles once for the whole soak.
 _SHAPES = [(288, 24), (24, 288), (160, 40), (48, 48), (20, 520)]
 
 
@@ -63,25 +62,30 @@ def test_geometry_soak_vs_oracle(trial):
     lab0 = paint_seeds((h, w), seeds)
     bucket = _label_bucket(len(seeds))
     backends = ["jnp", "relax"]
-    # The Mosaic kernel (interpret mode) on a rotating subset — one trial
-    # per pool shape, alternating variants (test_differential's extreme
-    # cases cover the merging+Mosaic pairing on the tall/thin and
-    # short/wide shapes) — interpret-mode runtime is the soak's cost
-    # ceiling, so it is not paid 20 times.
+    # The public builder (auto engine, host seed painting) on a rotating
+    # subset — one trial per pool shape, alternating variants.
     if trial < len(_SHAPES):
-        backends.append("relax_pallas")
+        backends.append("public")
     for backend in backends:
-        got = np.asarray(
-            run_levels(
-                jnp.asarray(img),
-                lab0,
-                n_labels=bucket,
-                max_water_level=max_lvl,
-                merging=merging,
-                backend=backend,
-                interpret=(backend == "relax_pallas"),
+        if backend == "public":
+            from rustronomy_watershed_tpu import TransformBuilder
+
+            ws = getattr(
+                TransformBuilder.default().set_max_water_lvl(max_lvl),
+                "build_merging" if merging else "build_segmenting",
+            )()
+            got = ws.transform(img, seeds)
+        else:
+            got = np.asarray(
+                run_levels(
+                    jnp.asarray(img),
+                    lab0,
+                    n_labels=bucket,
+                    max_water_level=max_lvl,
+                    merging=merging,
+                    backend=backend,
+                )
             )
-        )
         np.testing.assert_array_equal(
             got,
             want,

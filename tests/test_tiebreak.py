@@ -109,7 +109,7 @@ def test_builder_validation():
         (
             TransformBuilder.default()
             .set_tie_break("random")
-            .set_backend("relax_pallas")
+            .set_backend("relax")
             .build_segmenting()
         )
     with pytest.raises(ValueError):
@@ -121,7 +121,7 @@ def test_builder_validation():
         )
     # min (the default) composes with everything, unchanged.
     TransformBuilder.default().set_tie_break("min").set_backend(
-        "relax_pallas"
+        "relax"
     ).build_segmenting()
 
 
